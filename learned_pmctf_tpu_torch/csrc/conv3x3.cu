@@ -1,4 +1,5 @@
-// Fused 3x3 'same' convolution for Hopper (sm_90a), f32, NCHW.
+// Fused 3x3 'same' convolution for Hopper (sm_90a), f32, NCHW: the C
+// interface, the choice of variant, and the variant "direct_f32".
 //
 // Replaces the TPU kernel learned_pmctf_tpu/ops/pallas_conv.py:conv3x3_hcw
 // (Pallas, (N,H,C,W) layout). Computes the same function on NCHW:
@@ -6,11 +7,18 @@
 // with stride 1, zero 'same' padding, OIHW weights (cross-correlation),
 // act in {none, LeakyReLU(0.2), tanh}, all in f32. Any N, C, H, W, O.
 //
-// What bounds it: f32 CUDA-core FMA throughput. Tensor cores are not
-// used: TF32 would break f32 parity with the reference, and a bf16 path
-// is a later opt-in. A 64->64 conv at 1152x1920 is 1.63e11 FLOP against
-// ~1.1 GB of traffic, so the card's f32 rate (67 TFLOP/s, H100 SXM at
-// 700 W) bounds it, not its 3.35 TB/s.
+// conv3x3_pick chooses from the shape, first match:
+// - O == 1: "head_o1" (conv3x3_head.cu), bound by bytes;
+// - C % 8 == 0, O % 8 == 0, O <= 128: bound by operations on the tensor
+//   cores; "wgmma_3xtf32" (conv3x3_wgmma.cu) where W % 4 == 0 and the
+//   tensors lie on 16 bytes, else "mma_sync_3xtf32" (conv3x3_mma.cu), at
+//   about half the rate;
+// - everything else (C = 1, odd channel counts): "direct_f32", below.
+//
+// direct_f32. What bounds it: at C = 1 (the 1->64 input conv of
+// PostProcess) bytes, 64 output planes written for one read; at wide C
+// the f32 CUDA-core FMA rate (67 TFLOP/s, H100 SXM at 700 W), which is
+// why the wide shapes have left it for the tensor cores.
 //
 // Design (direct conv, no im2col in device memory):
 // - a block owns a TH x 32 tile of output pixels for OCB output channels
@@ -30,16 +38,14 @@
 // The summation order is fixed (chunk, channel, kx, ky), so the output
 // is deterministic run to run; no atomics.
 
-#include <cuda_runtime.h>
+#include "conv3x3_common.cuh"
 
+namespace conv3x3 {
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kPix = 8;  // output pixels per thread (one column, adjacent rows)
 constexpr int kOc = 8;   // output channels per thread
 constexpr int kTW = 32;  // tile width: one column per lane
-
-enum Act { kNone = 0, kLeaky = 1, kTanh = 2 };
 
 template <int OCB, int CC>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -138,43 +144,79 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ wt,
       if (gy >= H) continue;
       float val = acc[p][o] + bias;
       if (res != nullptr) val += res[base + (size_t)gy * W];
-      if (act == kLeaky)
-        val = val >= 0.f ? val : 0.2f * val;
-      else if (act == kTanh)
-        val = tanhf(val);
-      y[base + (size_t)gy * W] = val;
+      y[base + (size_t)gy * W] = activate(val, act);
     }
   }
 }
 
 template <int OCB, int CC>
-cudaError_t launch(const float* x, const float* wt, const float* b,
-                   const float* res, float* y, int N, int C, int H, int W,
-                   int O, int act, cudaStream_t stream) {
+cudaError_t launch(const Args& a) {
   constexpr int TH = (kThreads / (OCB / kOc) / kTW) * kPix;
-  const int tiles = ((W + kTW - 1) / kTW) * ((H + TH - 1) / TH);
-  dim3 grid(tiles, (O + OCB - 1) / OCB, N);
-  conv3x3_kernel<OCB, CC><<<grid, kThreads, 0, stream>>>(
-      x, wt, b, res, y, C, H, W, O, act);
+  const int tiles = ((a.W + kTW - 1) / kTW) * ((a.H + TH - 1) / TH);
+  dim3 grid(tiles, (a.O + OCB - 1) / OCB, a.N);
+  conv3x3_kernel<OCB, CC><<<grid, kThreads, 0, a.stream>>>(
+      a.x, a.w, a.b, a.res, a.y, a.C, a.H, a.W, a.O, a.act);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// wt: the weights as (C, 3, 3, O), i.e. OIHW permuted to (1, 2, 3, 0)
-extern "C" int conv3x3_f32(const float* x, const float* wt, const float* b,
+// a.w: the weights as (C, 3, 3, O), i.e. OIHW permuted to (1, 2, 3, 0)
+cudaError_t launch_direct(const Args& a) {
+  if (a.N > 65535 || (a.O + 7) / 8 > 65535) return cudaErrorInvalidValue;
+  if (a.O <= 8)  // narrow heads: one oc group, 64x32 tiles
+    return launch<8, 4>(a);
+  if (a.C == 1)  // input convs (1->64): no idle channels in a chunk
+    return launch<64, 1>(a);
+  return launch<64, 8>(a);  // 8x32 tiles x 64 output channels
+}
+
+}  // namespace conv3x3
+
+// Whether a variant takes the shape (`aligned`: x, the residual and y lie
+// on 16-byte multiples).
+extern "C" int conv3x3_takes(int variant, int C, int O, int W, int aligned) {
+  switch (variant) {
+    case conv3x3::kDirect: return 1;
+    case conv3x3::kHead: return O == 1 && C <= 2048;
+    case conv3x3::kMmaSync: return C % 8 == 0 && conv3x3::tc_padded_o(O) != 0;
+    case conv3x3::kWgmma: return conv3x3::wgmma_takes(C, O, W, aligned != 0);
+    default: return 0;
+  }
+}
+
+// The variant (conv3x3::Variant) that conv3x3_f32 takes for this shape
+// when it is asked for kAuto.
+extern "C" int conv3x3_pick(int C, int O, int W, int aligned) {
+  using namespace conv3x3;
+  const int order[] = {kHead, kWgmma, kMmaSync, kDirect};
+  for (int v : order)
+    if (conv3x3_takes(v, C, O, W, aligned)) return v;
+  return kDirect;
+}
+
+// Output channels of the packed weights a tensor-core variant reads (0 if
+// O has no such variant).
+extern "C" int conv3x3_padded_o(int O) { return conv3x3::tc_padded_o(O); }
+
+// w: the weights in the layout of the variant that runs (ops/conv3x3.py
+// packs them). variant 0 takes conv3x3_pick's choice; another value
+// forces that variant, for measurements, and fails on a shape it does not
+// take. Returns the cudaError_t of the launch.
+extern "C" int conv3x3_f32(const float* x, const float* w, const float* b,
                            const float* res, float* y, int N, int C, int H,
-                           int W, int O, int act, void* stream) {
+                           int W, int O, int act, int variant, void* stream) {
+  using namespace conv3x3;
   if (N <= 0 || C <= 0 || H <= 0 || W <= 0 || O <= 0 || act < 0 || act > 2)
     return (int)cudaErrorInvalidValue;
-  if (N > 65535 || (O + 7) / 8 > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (O <= 8)       // output heads (64->1): one oc group, 64x32 tiles
-    err = launch<8, 4>(x, wt, b, res, y, N, C, H, W, O, act, s);
-  else if (C == 1)  // input convs (1->64): no idle channels in a chunk
-    err = launch<64, 1>(x, wt, b, res, y, N, C, H, W, O, act, s);
-  else              // 64-wide convs: 8x32 tiles x 64 output channels
-    err = launch<64, 8>(x, wt, b, res, y, N, C, H, W, O, act, s);
-  return (int)err;
+  const Args a{x, w, b, res, y, N, C, H, W, O, act,
+               reinterpret_cast<cudaStream_t>(stream)};
+  if (variant == kAuto) variant = conv3x3_pick(C, O, W, aligned16(a));
+  switch (variant) {
+    case kDirect: return (int)launch_direct(a);
+    case kHead: return (int)launch_head(a);
+    case kMmaSync: return (int)launch_mma_sync(a);
+    case kWgmma: return (int)launch_wgmma(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

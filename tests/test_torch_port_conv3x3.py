@@ -2,9 +2,9 @@
 package's Pallas kernel (interpret mode) and its XLA oracle, and the
 port's PostProcess against the JAX PostProcess.
 
-On the CPU the wrapper runs its plain version; the CUDA kernel itself is
-held against the plain version on the card (the `cuda` test below, and
-chip_smoke.py).
+On the CPU the wrapper runs its plain version; the CUDA kernels themselves
+are held against the plain version on the card (the `cuda` test of
+test_torch_port_conv3x3_card.py, and chip_smoke.py).
 """
 
 import numpy as np
@@ -128,25 +128,3 @@ def test_postprocess_matches_jax(batch, h, w):
     with torch.no_grad():
         got = port(torch.tensor(x)).numpy()
     assert float(np.max(np.abs(got - np.asarray(ref)))) < 1e-3
-
-
-@pytest.mark.cuda
-def test_conv3x3_kernel_matches_plain_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    torch.backends.cudnn.allow_tf32 = False
-    g = torch.Generator(device="cuda").manual_seed(0)
-    for n, c, o, h, w, act, res in [(1, 64, 64, 37, 131, "leaky_relu", False),
-                                    (2, 1, 64, 20, 96, None, False),
-                                    (1, 64, 1, 33, 70, "tanh", True),
-                                    (3, 5, 9, 7, 13, None, True)]:
-        x = torch.randn(n, c, h, w, device="cuda", generator=g)
-        wt = torch.randn(o, c, 3, 3, device="cuda", generator=g) * 0.1
-        b = torch.randn(o, device="cuda", generator=g)
-        r = torch.randn(n, o, h, w, device="cuda", generator=g) if res else None
-        before = c3.conv3x3.launches
-        y = c3.conv3x3(x, wt, b, act=act, residual=r)
-        torch.cuda.synchronize()
-        assert c3.conv3x3.launches == before + 1
-        ref = c3.conv3x3_plain(x, wt, b, act=act, residual=r)
-        assert float((y - ref).abs().max()) < 1e-4
