@@ -27,18 +27,36 @@ exits non-zero:
    GOP-16 (bench.py's length) is timed once, with its launches counted;
 6. profile: one more GOP under torch.profiler, its device time split by
    layer (SpyNet, MV coding, lifting, LSTM context, four-step priors,
-   PostProcess) and the device's idle share.
+   PostProcess) and the device's idle share;
+7. stream small reference: the small model's GOP-4 at 64x64 written to
+   rANS streams and decoded again (gop.stream_gop through PMCTFCodec), on
+   the card and on the CPU: each side decodes bit-exactly what it
+   encoded, and the two sides' reconstructions agree;
+8. stream: the real-bitstream path at full width, the model and frames
+   of the slice phase: GOP-4 encode+decode (a warm-up, then 3 timed
+   runs), an encode-only run and a run with overlapped (asynchronous)
+   decodes. Every decoded band and mv_hat must equal the encoder side bit
+   for bit, every stream file's bytes must be the same in every run, and
+   the conv3x3 launches are counted (encoder and decoder both run
+   PostProcess). It reports the stream's bits per frame beside the
+   estimate path's, host time in rANS, the device-to-host copies, and
+   the device's busy time and idle share in one profiled encode+decode
+   GOP and one profiled encode-only GOP.
 
 Then it prints the variants the main path did not take, the kernels line
-(one entry a variant the main path launched) and, last,
+(one entry a variant the main path launched; ``launches`` counts the
+estimate GOP-4, ``stream_launches`` the stream GOP-4) and, last,
 {"ok": true, "device": ...}.
 """
 
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -112,17 +130,29 @@ def parse_ptxas(log):
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+    from learned_pmctf_tpu_torch import native
     from learned_pmctf_tpu_torch.ops import conv3x3 as c3
-    t0 = time.perf_counter()
-    log = c3.build(force=True)
-    seconds = time.perf_counter() - t0
+
+    def timed(build):
+        t0 = time.perf_counter()
+        log = build(force=True)
+        return log, time.perf_counter() - t0
+
+    # the host rANS library (g++) builds beside the kernels (nvcc)
+    with ThreadPoolExecutor(2) as pool:
+        rans = pool.submit(timed, native.build)
+        log, seconds = timed(c3.build)
+        _, rans_seconds = rans.result()
     ptxas = parse_ptxas(log)
     if not ptxas:
         raise AssertionError(f"no ptxas report in the build log:\n{log}")
     emit({"phase": "build", "kernel": "conv3x3", "seconds": seconds,
           "sources": [src.split("learned_pmctf_tpu_torch/")[-1]
                       for src in c3.SOURCES],
-          "ptxas": ptxas})
+          "ptxas": ptxas, "rans_library_seconds": rans_seconds,
+          "rans_sources": [src.split("learned_pmctf_tpu_torch/")[-1]
+                           for src in native.SOURCES]})
 
 
 def conv_bound(n, c, o, h, w, residual, variant):
@@ -351,7 +381,7 @@ def phase_slice(smi):
           "bits": {str(k): v for k, v in out["bits"].items()},
           "card": smi})
     phase_profile(model, luma, chroma)
-    return by_variant
+    return by_variant, (model, luma, chroma, out["bits"])
 
 
 def _layer_labels(model):
@@ -380,6 +410,18 @@ def _layer_labels(model):
                 labels[m] = "four-step priors"
         labels[coder.dequantModule] = "postprocess (conv3x3)"
     return labels
+
+
+def device_kernels(prof):
+    """The kernels a profile saw and their busy time in ms (the kernels
+    themselves, as torch's own table sums them)."""
+    from torch.autograd import DeviceType
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not busy_ms > 0:
+        raise AssertionError("the profiler saw no kernel run on the device")
+    return kernels, busy_ms
 
 
 def phase_profile(model, luma, chroma):
@@ -415,12 +457,7 @@ def phase_profile(model, luma, chroma):
     for e in prof.events():
         if e.name in names and e.device_type == DeviceType.CPU:
             by_layer[e.name] += e.device_time_total / 1e3
-    # busy time: the kernels themselves (as torch's own table sums it)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if not busy_ms > 0:
-        raise AssertionError("the profiler saw no kernel run on the device")
+    kernels, busy_ms = device_kernels(prof)
     # a ctypes launch is no torch op, so the profiler ties the conv3x3
     # kernel to no range; PostProcess is its only caller
     by_layer["postprocess (conv3x3)"] += sum(
@@ -435,6 +472,168 @@ def phase_profile(model, luma, chroma):
                                 for e in top[:8]}})
 
 
+def stream_files(d):
+    return {f: open(os.path.join(d, f), "rb").read() for f in sorted(os.listdir(d))}
+
+
+def check_stream(out, what):
+    """Every pair's decoded bands and mv_hat equal the encoder side."""
+    if not out["max_err"] or any(v != 0.0 for v in out["max_err"].values()):
+        raise AssertionError(f"{what}: decoded planes differ from the encoder "
+                             f"side: {out['max_err']}")
+
+
+def phase_stream_small_reference():
+    from learned_pmctf_tpu_torch.codec.video_codec import PMCTFCodec
+    from learned_pmctf_tpu_torch.gop import stream_gop
+    from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
+    cfg = dict(decomp_levels=2, num_me_stages=2, channel_mv=8, channel_n=8,
+               features=16, ar_features=16)
+    luma, chroma = synthetic_gop(GOP, 64, 64, "cpu", seed=1)
+    outs, files = {}, {}
+    for dev in ("cpu", "cuda"):
+        with tempfile.TemporaryDirectory() as d, \
+                PMCTFCodec(build_pmctf(dev, seed=1, **cfg), device=dev) as codec:
+            codec.update()
+            outs[dev] = stream_gop(codec, luma, chroma, 10.0, d, psize=64,
+                                   device=dev)
+            files[dev] = stream_files(d)
+        check_stream(outs[dev], f"small stream GOP-4 on {dev}")
+    err = 0.0
+    for plane in ("luma", "chroma"):
+        for x, y in zip(outs["cuda"][plane], outs["cpu"][plane]):
+            err = max(err, float((x.cpu() - y).abs().max()))
+    if not err < 5e-2:
+        raise AssertionError(f"small stream GOP-4: card and CPU differ by {err}")
+    emit({"phase": "stream_small_reference", "gop": GOP, "size": [64, 64],
+          "max_abs_recon_diff_card_vs_cpu": err, "recon_abs_tol": 5e-2,
+          "bytes_equal_card_vs_cpu": files["cuda"] == files["cpu"],
+          "files_differing": sorted(f for f in files["cpu"]
+                                    if files["cpu"][f] != files["cuda"].get(f)),
+          "bits_card": {str(k): v for k, v in outs["cuda"]["bits"].items()},
+          "bits_cpu": {str(k): v for k, v in outs["cpu"]["bits"].items()}})
+
+
+def phase_stream(smi, model, luma, chroma, est_bits):
+    """The real-bitstream GOP-4 at full width (see the module docstring)."""
+    from learned_pmctf_tpu_torch.codec.video_codec import PMCTFCodec
+    from learned_pmctf_tpu_torch.gop import stream_gop
+    from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3, variants_for
+    h, w = LUMA
+    # a PostProcess call: one 1->64 conv, thirteen 64->64, one 64->1; a
+    # GOP-4 reconstructs 8 planes a side (3 pairs' H bands, the L bands)
+    per_side = {variants_for(1, 64, w)[0]: 2 * GOP,
+                variants_for(64, 64, w)[0]: 13 * 2 * GOP,
+                variants_for(64, 1, w)[0]: 2 * GOP}
+    row = {"phase": "stream", "model": "pMCTF-L full width (seeded random weights)",
+           "gop": GOP, "luma": [h, w], "chroma": [2, h // 2, w // 2],
+           "q_index": 10, "card": smi}
+    t0 = time.perf_counter()
+    codec = PMCTFCodec(model)
+    codec.update()
+    row["codec_setup_s"] = time.perf_counter() - t0
+    root = tempfile.mkdtemp(prefix="pmctf_stream_")
+    ref_files = None
+
+    def run(name, sides=2, **kw):
+        nonlocal ref_files
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        codec.stats.reset()
+        conv3x3.launches, conv3x3.by_variant = 0, {}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = stream_gop(codec, luma, chroma, 10.0, d, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        by_variant = dict(conv3x3.by_variant)
+        expected = {k: v * sides for k, v in per_side.items()}
+        if by_variant != expected:
+            raise AssertionError(f"stream {name}: conv3x3 launches by variant "
+                                 f"{by_variant}, expected {expected}")
+        if sides == 2:
+            check_stream(out, f"stream {name}")
+        check_outputs(out, h, w)
+        files = stream_files(d)
+        if ref_files is None:
+            ref_files = files
+        elif files != ref_files:
+            raise AssertionError(f"stream {name}: stream bytes differ from the "
+                                 "first run's")
+        stats = {"ms": ms, "syncs": codec.stats.syncs,
+                 "rans_encode_ms": codec.stats.rans_encode_s * 1e3,
+                 "rans_decode_ms": codec.stats.rans_decode_s * 1e3,
+                 "conv3x3_launches": conv3x3.launches}
+        return out, stats, by_variant
+
+    try:
+        run("warmup")
+        torch.cuda.reset_peak_memory_stats()
+        timed = [run(f"run{i}") for i in range(3)]
+        peak = torch.cuda.max_memory_allocated()
+        out, _, by_variant = timed[0]
+        stats = sorted((s for _, s, _ in timed), key=lambda s: s["ms"])[1]
+        _, enc_stats, _ = run("encode_only", sides=1, skip_decoding=True)
+        _, async_stats, _ = run("decode_async", decode_async=True)
+        nbytes = {f: len(b) for f, b in ref_files.items()}
+        profiles = {name: profile_stream(codec, os.path.join(root, f"prof_{name}"),
+                                         luma, chroma, **kw)
+                    for name, kw in (("encode_decode", {}),
+                                     ("encode_only", {"skip_decoding": True}))}
+    finally:
+        codec.close()
+        shutil.rmtree(root)
+
+    frames_bits = {}
+    for fi, bits in out["bits"].items():
+        frames_bits[str(fi)] = {
+            k: {"stream": v, "estimate": est_bits[fi][k],
+                "ratio": v / est_bits[fi][k]} for k, v in bits.items()}
+    total_stream = sum(v for b in out["bits"].values() for v in b.values())
+    total_est = sum(v for b in est_bits.values() for v in b.values())
+    row.update({
+        "stream_gop_ms": stats["ms"],
+        "stream_gop_ms_runs": [s["ms"] for _, s, _ in timed],
+        "frames_per_s": GOP / (stats["ms"] / 1e3),
+        "median_run": stats,
+        "encode_only": enc_stats,
+        "encode_only_frames_per_s": GOP / (enc_stats["ms"] / 1e3),
+        "decode_async": async_stats,
+        "decode_async_frames_per_s": GOP / (async_stats["ms"] / 1e3),
+        "peak_mem_bytes": peak,
+        "conv3x3_launches_by_variant": by_variant,
+        "max_err": max(max(o["max_err"].values()) for o, _, _ in timed),
+        "bits_per_frame": frames_bits,
+        "bits_total_stream": total_stream, "bits_total_estimate": total_est,
+        "bits_ratio_stream_to_estimate": total_stream / total_est,
+        "stream_file_bytes": nbytes,
+        "bytes_identical_across_runs": True,
+        "profile": profiles})
+    emit(row)
+    return by_variant
+
+
+def profile_stream(codec, d, luma, chroma, **kw):
+    """Device busy time and idle share of one stream GOP (torch.profiler
+    sees the kernels of every thread; they share one stream)."""
+    from torch.profiler import ProfilerActivity, profile
+    from learned_pmctf_tpu_torch.gop import stream_gop
+    os.makedirs(d)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        stream_gop(codec, luma, chroma, 10.0, d, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kernels, busy_ms = device_kernels(prof)
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
+    return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "conv3x3_kernels_ms": sum(e.self_device_time_total for e in kernels
+                                      if "conv3x3" in e.key and "_kernel" in e.key) / 1e3,
+            "top_device_ops_ms": {e.key[:80]: e.self_device_time_total / 1e3
+                                  for e in top[:6]}}
+
+
 # variant -> its source and the kernel-phase shape that stands for it
 VARIANT_ROWS = {
     "wgmma_3xtf32": ("conv3x3_wgmma.cu", "luma 64->64 leaky_relu"),
@@ -444,7 +643,7 @@ VARIANT_ROWS = {
 }
 
 
-def kernel_entries(rows, by_variant):
+def kernel_entries(rows, by_variant, stream_by_variant):
     """One entry a variant: the variant's numbers at the shape that stands
     for it, whether the shape took it or timed it beside its own."""
     by_shape = {r["shape"]: r for r in rows}
@@ -461,6 +660,7 @@ def kernel_entries(rows, by_variant):
             "source": f"learned_pmctf_tpu_torch/csrc/{source}",
             "replaces": "learned_pmctf_tpu/ops/pallas_conv.py:159",
             "launches": by_variant.get(variant, 0),
+            "stream_launches": stream_by_variant.get(variant, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows if r["variant"] == variant)
             if own else row[f"{variant}_max_abs_err"],
             "ms": row["ms"] if own else row[f"{variant}_ms"],
@@ -476,11 +676,16 @@ def main():
     phase_build()
     rows = phase_kernel()
     phase_small_reference()
-    by_variant = phase_slice(smi)
-    entries = kernel_entries(rows, by_variant)
+    by_variant, slice_run = phase_slice(smi)
+    phase_stream_small_reference()
+    stream_by_variant = phase_stream(smi, *slice_run)
+    entries = kernel_entries(rows, by_variant, stream_by_variant)
     on_path = [e for e in entries if e["launches"] > 0]
     if {e["name"].split("/")[1] for e in on_path} != set(by_variant):
         raise AssertionError(f"no kernel-phase row for a variant of {by_variant}")
+    if any(e["stream_launches"] == 0 for e in on_path):
+        raise AssertionError(f"a kernel of the estimate path was not launched "
+                             f"by the stream path: {stream_by_variant}")
     # variants the kernel phase launched and checked but the main path did
     # not take: the same keys, on a line of their own
     emit({"off_path_variants": [e for e in entries if e["launches"] == 0]})

@@ -4,6 +4,8 @@ The JAX package ``learned_pmctf_tpu`` is the reference: every module
 here has a counterpart of the same name there and is held against it by
 ``tests/test_torch_port_*.py``. This package imports nothing of it.
 
-Entry points (``models.pmctf.build_pmctf``, ``gop.code_gop``) run on
-CUDA unless the caller passes ``device="cpu"``.
+Entry points (``models.pmctf.build_pmctf``, ``gop.code_gop``,
+``gop.stream_gop``, ``codec.video_codec.PMCTFCodec`` and
+``codec.image_codec.PWaveCodec``) run on CUDA unless the caller passes
+``device="cpu"``.
 """

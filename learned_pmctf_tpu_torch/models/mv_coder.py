@@ -1,6 +1,8 @@
 """Motion-vector autoencoder, hyperprior, and the quad four-part prior.
 
-Counterpart of learned_pmctf_tpu/models/mv_coder.py (estimate path).
+Counterpart of learned_pmctf_tpu/models/mv_coder.py: the estimate path's
+``four_part_prior_forward`` and the bitstream path's per-pass
+``four_part_prior_decode_scales`` / ``four_part_prior_scatter``.
 """
 
 from __future__ import annotations
@@ -137,3 +139,19 @@ def four_part_prior_forward(y, common_params, adaptors: Sequence[Callable],
 
     return (torch.cat(res_acc, dim=1), torch.cat(q_acc, dim=1),
             torch.cat(hat_acc, dim=1) * q_dec, torch.cat(shat_acc, dim=1))
+
+
+def four_part_prior_decode_scales(scales_q, masks, step: int):
+    """Dense scale plane of pass `step` for rANS: each spatial phase
+    carries exactly one channel quarter under MASK_SCHEDULE."""
+    out = 0.0
+    for i in range(4):
+        out = out + scales_q[i] * masks[MASK_SCHEDULE[step][i]]
+    return out
+
+
+def four_part_prior_scatter(y_q_r, means_q, masks, step: int):
+    """Scatter one decoded dense plane of pass `step` into the 4 channel
+    quarters, adding their means."""
+    return torch.cat([(y_q_r + means_q[i]) * masks[MASK_SCHEDULE[step][i]]
+                      for i in range(4)], dim=1)

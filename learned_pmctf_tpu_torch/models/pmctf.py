@@ -1,10 +1,12 @@
-"""pMCTF-L video coder, estimate path.
+"""pMCTF-L video coder.
 
 Counterpart of learned_pmctf_tpu/models/pmctf.py with
 ``ll_mode="fourstep"``, ``warp_mode="exact"``, ``spynet_luma=True``, f32:
 two pWave coders for the temporal low/highpass bands, SpyNet motion, the
 MV autoencoder with its four-part prior, learned temporal lifting and
 per-stage highpass quality scaling. The DPB is an explicit dict.
+``forward_one_stage`` is the estimate path; the ``mv_*`` methods are the
+sub-graphs of the bitstream codec (codec/video_codec.py).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from ..ops.warp import flow_warp
 from ..runtime import disable_tf32, resolve_device
 from .layers import Conv2d, DepthConvBlock, init_params
 from .mv_coder import (HyperDecoder, HyperEncoder, MvDec, MvEnc,
-                       four_part_prior_forward)
+                       four_part_prior_forward, separate_prior_enc_dec)
 from .pwave import PWave, interp_q_scale
 from .spynet import MESpynet
 from .wavelet import TemporalLifting
@@ -42,6 +44,7 @@ class PMCTF(nn.Module):
         self.lossy = lossy
         self.num_me_stages = n = num_me_stages
         self.quant_stage = quant_stage
+        self.channel_mv = channel_mv
         c_mv, c_n = channel_mv, channel_n
 
         self.lp_coder = PWave(bitdepth, decomp_levels, lossy, features, ar_features)
@@ -109,30 +112,24 @@ class PMCTF(nn.Module):
                 torch.cat([mv_params, ref_mv_y], dim=1))
         return self.mv_y_prior_fusion[me_num](mv_params)
 
+    def _adaptors(self, me_num: int):
+        return [getattr(self, f"mv_y_spatial_prior_adaptor_{k}")[me_num]
+                for k in (1, 2, 3)]
+
     # ---- motion ----------------------------------------------------------
 
     def compute_and_code_motion(self, ref_frame, cur_frame, q_index, dpb,
                                 stage_idx: int = 0, me_downsample: int = 1):
         """Estimate, encode and decode motion (estimate path, no noise)."""
         me_num = self.me_index(stage_idx)
-        mv_y_q_enc, mv_y_q_dec = self.get_mv_y_q(q_index, me_num)
-        mv_cur = cur_frame / self.dynamic_range
-        mv_ref = ref_frame / self.dynamic_range
-        if me_downsample > 1:
-            mv_cur = bilinear_downsample(mv_cur, me_downsample)
-            mv_ref = bilinear_downsample(mv_ref, me_downsample)
-
-        est_mv = self.optic_flow(mv_cur, mv_ref)
-        mv_y = self.mv_encoder[me_num](est_mv, dpb.get("mv_feature"), mv_y_q_enc)
-        mv_z_hat = torch.round(self.mv_hyper_prior_encoder[me_num](mv_y))
+        mv_y, mv_z_hat = self.mv_latent_planes(ref_frame, cur_frame, dpb,
+                                               me_num, q_index, me_downsample)
         mv_params = self.mv_prior_param_decoder(mv_z_hat, dpb, me_num)
-        adaptors = [getattr(self, f"mv_y_spatial_prior_adaptor_{k}")[me_num]
-                    for k in (1, 2, 3)]
         _, mv_y_q, mv_y_hat, mv_scales_hat = four_part_prior_forward(
-            mv_y, mv_params, adaptors, self.mv_y_spatial_prior[me_num])
-        mv_hat, mv_feature = self.mv_decoder[me_num](mv_y_hat, mv_y_q_dec)
-        if me_downsample > 1:
-            mv_hat = bilinear_upsample(mv_hat, me_downsample) * me_downsample
+            mv_y, mv_params, self._adaptors(me_num),
+            self.mv_y_spatial_prior[me_num])
+        mv_hat, mv_feature = self.mv_decode_tail(mv_y_hat, me_num, q_index,
+                                                 me_downsample)
 
         bits_mv_y = laplace_bits(mv_y_q, mv_scales_hat)
         bits_mv_z = self.mv_bit_est[me_num].get_z_bits(mv_z_hat)
@@ -141,6 +138,54 @@ class PMCTF(nn.Module):
         bpp_mv_z = (bits_mv_z.sum(dim=(1, 2, 3)) / pixel_num).sum()
         ref_mv = {"mv_feature": mv_feature, "mv_y_hat": mv_y_hat}
         return mv_hat, ref_mv, bpp_mv_y, bpp_mv_z
+
+    # ---- sub-graphs of the bitstream codec -------------------------------
+
+    def mv_latent_planes(self, ref_y, cur_y, dpb, stage_idx: int, q_index,
+                         me_downsample: int = 1):
+        """(mv_y, mv_z_hat): the latents only the encoder computes."""
+        me_num = self.me_index(stage_idx)
+        mv_y_q_enc, _ = self.get_mv_y_q(q_index, me_num)
+        mv_cur = cur_y / self.dynamic_range
+        mv_ref = ref_y / self.dynamic_range
+        if me_downsample > 1:
+            mv_cur = bilinear_downsample(mv_cur, me_downsample)
+            mv_ref = bilinear_downsample(mv_ref, me_downsample)
+        est_mv = self.optic_flow(mv_cur, mv_ref)
+        mv_y = self.mv_encoder[me_num](est_mv, dpb.get("mv_feature"), mv_y_q_enc)
+        return mv_y, torch.round(self.mv_hyper_prior_encoder[me_num](mv_y))
+
+    def mv_prior_params(self, mv_z_hat, dpb, stage_idx: int):
+        return self.mv_prior_param_decoder(mv_z_hat, dpb, self.me_index(stage_idx))
+
+    @staticmethod
+    def mv_decode_split(mv_params):
+        """(q_dec, scales quarters, means quarters) of the first pass."""
+        _, q_dec, scales, means = separate_prior_enc_dec(mv_params)
+        return q_dec, scales.chunk(4, dim=1), means.chunk(4, dim=1)
+
+    def mv_decode_spatial(self, y_hat_so_far, mv_params, stage_idx: int,
+                          step: int):
+        """(scales quarters, means quarters) of pass `step + 1`."""
+        me_num = self.me_index(stage_idx)
+        inp = torch.cat([y_hat_so_far, mv_params], dim=1)
+        out = self.mv_y_spatial_prior[me_num](self._adaptors(me_num)[step](inp))
+        chunks = out.chunk(8, dim=1)
+        return chunks[:4], chunks[4:]
+
+    def mv_decode_tail(self, mv_y_hat, stage_idx: int, q_index,
+                       me_downsample: int = 1):
+        """(mv_hat, mv_feature) from the decoded MV latent."""
+        me_num = self.me_index(stage_idx)
+        _, mv_y_q_dec = self.get_mv_y_q(q_index, me_num)
+        mv_hat, mv_feature = self.mv_decoder[me_num](mv_y_hat, mv_y_q_dec)
+        if me_downsample > 1:
+            mv_hat = bilinear_upsample(mv_hat, me_downsample) * me_downsample
+        return mv_hat, mv_feature
+
+    def mv_z_cdf_fn(self, x, stage_idx: int):
+        """The MV hyper-latent's factorized CDF (for table building)."""
+        return self.mv_bit_est[self.me_index(stage_idx)].get_cdf(x)
 
     # ---- temporal lifting ------------------------------------------------
 

@@ -1,11 +1,14 @@
-"""pWave++ wavelet image coder, estimate path.
+"""pWave++ wavelet image coder.
 
 Counterpart of learned_pmctf_tpu/models/pwave.py with
 ``ll_mode="fourstep"``: 4-level learned 2-D lifting analysis, per-subband
 quantization with a log-interpolated QP range (21 rate points), the LL
 subband and the lh/hl/hh subbands (coarse to fine, with the LSTM subband
 context) coded by four-step checkerboard priors, Laplace rate estimate,
-synthesis and PostProcess.
+synthesis and PostProcess. ``forward`` is the estimate path; the
+bitstream codec (codec/image_codec.py) calls ``quantize_planes``,
+``ctx_init``/``ctx_step``, the fusion modules' ``hier_params`` /
+``spatial_params`` and ``reconstruct``.
 """
 
 from __future__ import annotations
@@ -140,12 +143,7 @@ class PWave(nn.Module):
                 context, states = self.context_prediction.step(
                     s_hat_band, states, upsample_level=up)
 
-        rec = {l: {} for l in range(L)}
-        for lvl in range(L):
-            for band, sb in subbands_hat[lvl].items():
-                q = q_scale_ll if band == "ll" else q_scale
-                rec[lvl][band] = self.dequantize_subband(sb, q)
-        x_hat = self.postprocess(self.synthesis(rec))
+        x_hat = self.reconstruct(subbands_hat, q_index, qp_scale)
 
         num_pixels = x.shape[0] * x.shape[2] * x.shape[3]
         return {
@@ -155,3 +153,34 @@ class PWave(nn.Module):
             "bpp_total": bits.sum() / num_pixels,
             "mse": torch.mean((x - x_hat) ** 2),
         }
+
+    # ---- sub-graphs of the bitstream codec -------------------------------
+
+    def quantize_planes(self, x, q_index=None, qp_scale=None):
+        """Quantized (continuous, pre-round) subbands in coding order: the
+        teacher inputs of the codec's encode-as-decode replay."""
+        q_scale, q_scale_ll = self.current_q(q_index, qp_scale)
+        y = self.analysis(x)
+        L = self.decomp_levels
+        planes = {"ll": self.quantize_subband(y[L - 1]["ll"], q_scale_ll)}
+        for lvl in range(L - 1, -1, -1):
+            for band in BANDS:
+                planes[f"{lvl}_{band}"] = self.quantize_subband(y[lvl][band], q_scale)
+        return planes
+
+    def ctx_init(self, like):
+        b, _, h, w = like.shape
+        return self.context_prediction.init_states(b, h, w, like)
+
+    def ctx_step(self, subband, states, upsample_level=None):
+        return self.context_prediction.step(subband, states, upsample_level)
+
+    def reconstruct(self, subbands_hat, q_index=None, qp_scale=None):
+        """Dequantize + synthesis + PostProcess (the decode tail)."""
+        q_scale, q_scale_ll = self.current_q(q_index, qp_scale)
+        rec = {}
+        for lvl, bands in subbands_hat.items():
+            rec[lvl] = {band: self.dequantize_subband(
+                sb, q_scale_ll if band == "ll" else q_scale)
+                for band, sb in bands.items()}
+        return self.postprocess(self.synthesis(rec))

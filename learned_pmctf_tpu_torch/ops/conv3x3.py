@@ -200,17 +200,19 @@ def packed_weights(w, layout, o_pad=None):
     if layout == "oihw":
         return w
     key = (w.data_ptr(), w._version, w.device, o_pad)
-    cache = w.__dict__.setdefault("_conv3x3_packs", {})
-    hit = cache.get(layout)
-    if hit is not None and hit[0] == key:
-        return hit[1]
-    with torch.no_grad():
-        if layout == "direct":  # (C, 3, 3, O): a chunk's weights are one run
-            pack = w.detach().permute(1, 2, 3, 0).contiguous()
-        else:
-            pack = pack_weights(w.detach(), layout, o_pad)
-    packed_weights.packs += 1
-    cache[layout] = (key, pack)
+    # under the lock: threads that code streams at once share the weights
+    with _lock:
+        cache = w.__dict__.setdefault("_conv3x3_packs", {})
+        hit = cache.get(layout)
+        if hit is not None and hit[0] == key:
+            return hit[1]
+        with torch.no_grad():
+            if layout == "direct":  # (C, 3, 3, O): a chunk's weights are one run
+                pack = w.detach().permute(1, 2, 3, 0).contiguous()
+            else:
+                pack = pack_weights(w.detach(), layout, o_pad)
+        packed_weights.packs += 1
+        cache[layout] = (key, pack)
     return pack
 
 
@@ -292,8 +294,9 @@ def _launch(x, w, b, act, residual, variant):
             y.data_ptr(), n, c, h, wd, o, ACTS[act], VARIANTS[name], stream)
     if rc != 0:
         raise RuntimeError(f"conv3x3 kernel {name} launch failed: CUDA error {rc}")
-    conv3x3.launches += 1
-    conv3x3.by_variant[name] = conv3x3.by_variant.get(name, 0) + 1
+    with _lock:  # the codec launches from several threads
+        conv3x3.launches += 1
+        conv3x3.by_variant[name] = conv3x3.by_variant.get(name, 0) + 1
     return y
 
 

@@ -28,3 +28,14 @@ def disable_tf32() -> None:
     f32 throughout."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def deterministic_cudnn() -> None:
+    """Let cuDNN pick its convolution algorithm by shape alone, and only
+    among deterministic ones, for the rest of the process.
+
+    The bitstream codec needs it: the encoder replays the decoder's convs,
+    and one ulp of difference between the two sides flips a rounded
+    symbol or a table index and desyncs the range coder."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False

@@ -128,3 +128,33 @@ def test_postprocess_matches_jax(batch, h, w):
     with torch.no_grad():
         got = port(torch.tensor(x)).numpy()
     assert float(np.max(np.abs(got - np.asarray(ref)))) < 1e-3
+
+
+def test_packed_weights_cache_is_thread_safe():
+    """Codec threads share PostProcess weights: however many threads ask
+    for a weight's pack at once, it is packed once and counted once."""
+    import sys
+    import threading
+    weights = [torch.randn(64, 64, 3, 3) for _ in range(40)]
+    before = c3.packed_weights.packs
+    barrier = threading.Barrier(16)
+    results = [[] for _ in range(16)]
+
+    def work(i):
+        barrier.wait(timeout=30)
+        for w in weights:
+            results[i].append(c3.packed_weights(w, "wgmma").data_ptr())
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(16)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    assert c3.packed_weights.packs - before == len(weights)
+    assert all(r == results[0] for r in results) and len(results[0]) == 40

@@ -1,7 +1,9 @@
-"""Port parity, the whole slice: learned_pmctf_tpu_torch.gop.code_gop
-against the JAX PMCTF driven through the same GOP ladder as the JAX
-package's bench (bench.py:code_gop, without its jit and chroma batching):
-warp_mode="exact", f32, small config, 64x64 luma and 32x32 chroma.
+"""Port parity, the whole slices: learned_pmctf_tpu_torch.gop.code_gop
+(the estimate path) and gop.stream_gop (real bitstreams through
+PMCTFCodec) against the JAX PMCTF driven through the same GOP ladder as
+the JAX package's bench (bench.py:code_gop, without its jit and chroma
+batching): warp_mode="exact", f32, small config, 64x64 luma and 32x32
+chroma. One run of the JAX ladder serves both.
 """
 
 
@@ -14,7 +16,9 @@ from numpy.lib.stride_tricks import sliding_window_view
 
 from learned_pmctf_tpu.models import PMCTF as JaxPMCTF
 
-from learned_pmctf_tpu_torch.gop import code_gop, gop_schedule
+from learned_pmctf_tpu_torch.codec.video_codec import PMCTFCodec
+from learned_pmctf_tpu_torch.gop import code_gop, gop_schedule, stream_gop
+from learned_pmctf_tpu_torch.models.pmctf import empty_dpb
 from test_torch_port_models import (jax_small_model, jax_small_params,
                                     port_small_model)
 
@@ -91,10 +95,23 @@ def jax_gop(jm, jp, luma, chroma, q_index):
     return bits, [np.asarray(f) for f in fl], [np.asarray(f) for f in fc]
 
 
-def _check_gop(models, gop):
-    jm, jp, port = models
-    luma, chroma = synthetic_frames(gop)
-    ref_bits, ref_luma, ref_chroma = jax_gop(jm, jp, luma, chroma, Q)
+@pytest.fixture(scope="module")
+def jax_ladders(models):
+    """GOP length -> (frames, the JAX ladder's result), computed once."""
+    jm, jp, _ = models
+    cache = {}
+
+    def get(gop):
+        if gop not in cache:
+            luma, chroma = synthetic_frames(gop)
+            cache[gop] = (luma, chroma), jax_gop(jm, jp, luma, chroma, Q)
+        return cache[gop]
+    return get
+
+
+def _check_gop(models, jax_ladders, gop):
+    _, _, port = models
+    (luma, chroma), (ref_bits, ref_luma, ref_chroma) = jax_ladders(gop)
     got = code_gop(port, luma, chroma, Q, device="cpu")
 
     assert set(got["bits"]) == set(ref_bits) == set(range(gop))
@@ -103,12 +120,57 @@ def _check_gop(models, gop):
         for key, r in ref.items():
             o = got["bits"][fi][key]
             assert abs(o - r) / max(abs(r), 1.0) < 1e-4, (gop, fi, key, o, r)
+    _check_planes(got, ref_luma, ref_chroma, gop)
+
+
+def _check_planes(got, ref_luma, ref_chroma, gop):
     for fi in range(gop):
         for name, port_f, ref_f in (("luma", got["luma"][fi], ref_luma[fi]),
                                     ("chroma", got["chroma"][fi], ref_chroma[fi])):
             assert port_f.shape == ref_f.shape
             err = float(np.max(np.abs(port_f.numpy() - ref_f)))
             assert err < 5e-2, (gop, fi, name, err)
+
+
+def test_estimate_one_stage_gop4_matches_jax(models, jax_ladders):
+    """PMCTFCodec.estimate_one_stage and inverse_mctf through the GOP-4
+    ladder, as the JAX package's test_pmctf_flex.py drives its codec."""
+    _, _, port = models
+    (luma, chroma), (ref_bits, ref_luma, ref_chroma) = jax_ladders(4)
+    fl = [torch.tensor(f) for f in luma]
+    fc = [torch.tensor(f) for f in chroma]
+    sched = gop_schedule(4)
+    mvs, bits = [None] * 4, {}
+    with PMCTFCodec(port, device="cpu") as codec:
+        cur_stage, dpb = -1, None
+        for stage, fi, step, code_lt in sched:
+            if stage != cur_stage:
+                cur_stage, dpb = stage, empty_dpb()
+            res = codec.estimate_one_stage(
+                (fl[fi], fc[fi]), (fl[fi + step], fc[fi + step]), code_lt, dpb,
+                stage_idx=port.me_index(stage), q_index=Q)
+            dpb = res["dpb"]
+            fl[fi], fl[fi + step] = res["L_t"], res["H_t"]
+            fc[fi], fc[fi + step] = res["L_tc"], res["H_tc"]
+            mvs[fi + step] = res["mv_hat"]
+            bits[fi + step] = {"bit_H": res["bit_H"], "bit_ME": res["bit_ME"]}
+            if code_lt:
+                bits[fi] = {"bit_L": res["bit_L"]}
+                assert res["bit_L"] > res["bit_Lc"] > 0
+            assert res["bit_H"] > res["bit_Hc"] > 0
+        for stage, fi, step, _ in reversed(sched):
+            me = port.me_index(stage)
+            fl[fi], fl[fi + step] = codec.inverse_mctf(
+                fl[fi], fl[fi + step], mvs[fi + step], stage_idx=me)
+            fc[fi], fc[fi + step] = codec.inverse_mctf(
+                fc[fi], fc[fi + step], mvs[fi + step], stage_idx=me,
+                downscale=True)
+    assert set(bits) == set(ref_bits)
+    for fi, ref in ref_bits.items():
+        assert set(bits[fi]) == set(ref)
+        for key, r in ref.items():
+            assert abs(bits[fi][key] - r) / max(abs(r), 1.0) < 1e-4, (fi, key)
+    _check_planes({"luma": fl, "chroma": fc}, ref_luma, ref_chroma, 4)
 
 
 def test_gop_schedule_matches_bench_ladder():
@@ -122,10 +184,51 @@ def test_gop_schedule_matches_bench_ladder():
         gop_schedule(6)
 
 
-def test_code_gop4_matches_jax(models):
-    _check_gop(models, 4)
+def test_code_gop4_matches_jax(models, jax_ladders):
+    _check_gop(models, jax_ladders, 4)
 
 
 @pytest.mark.slow
-def test_code_gop8_matches_jax(models):
-    _check_gop(models, 8)
+def test_code_gop8_matches_jax(models, jax_ladders):
+    _check_gop(models, jax_ladders, 8)
+
+
+# Stream bits against the estimate on these weights and frames (measured,
+# GOP-4 and GOP-8): the H and L bands cost 1.1x to 1.6x their estimate.
+# The coder quantizes each scale down to its 256-level table and codes
+# symbols beyond its +-50 range through the bypass, the seeded random
+# weights predict poorly, and each file carries a 16-byte header. The
+# motion streams of a 64x64 frame code a 1x1 hyper-latent and a 4x4
+# latent: 25 bytes, 6 of them header, against an estimate of 33 bits.
+BITS_RATIO = (1.0, 2.0)
+ME_BITS_MAX = 8 * 40
+
+
+def _check_stream_gop(models, jax_ladders, tmp_path, gop):
+    _, _, port = models
+    (luma, chroma), (ref_bits, ref_luma, ref_chroma) = jax_ladders(gop)
+    with PMCTFCodec(port, device="cpu") as codec:
+        codec.update()
+        got = stream_gop(codec, luma, chroma, Q, str(tmp_path), psize=64,
+                         device="cpu")
+    assert len(got["max_err"]) == gop - 1
+    assert set(got["max_err"].values()) == {0.0}  # decoded == encoder side
+    assert set(got["bits"]) == set(ref_bits) == set(range(gop))
+    for fi, ref in ref_bits.items():
+        assert set(got["bits"][fi]) == set(ref)
+        for key, r in ref.items():
+            o = got["bits"][fi][key]
+            if key == "bit_ME":
+                assert 0 < o <= ME_BITS_MAX, (gop, fi, key, o, r)
+            else:
+                assert BITS_RATIO[0] <= o / r <= BITS_RATIO[1], (gop, fi, key, o, r)
+    _check_planes(got, ref_luma, ref_chroma, gop)
+
+
+def test_stream_gop4_matches_jax(models, jax_ladders, tmp_path):
+    _check_stream_gop(models, jax_ladders, tmp_path, 4)
+
+
+@pytest.mark.slow
+def test_stream_gop8_matches_jax(models, jax_ladders, tmp_path):
+    _check_stream_gop(models, jax_ladders, tmp_path, 8)

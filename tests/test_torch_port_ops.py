@@ -127,10 +127,21 @@ def test_port_imports_nothing_of_jax():
 
 
 def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
-    from learned_pmctf_tpu_torch.gop import code_gop
+    from learned_pmctf_tpu_torch.codec.image_codec import PWaveCodec
+    from learned_pmctf_tpu_torch.codec.video_codec import PMCTFCodec
+    from learned_pmctf_tpu_torch.gop import code_gop, stream_gop
     from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
+    model = build_pmctf("cpu", decomp_levels=2, num_me_stages=1, channel_mv=8,
+                        channel_n=8, features=8, ar_features=8)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_pmctf(decomp_levels=2, num_me_stages=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         code_gop(None, [], [], 10)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PMCTFCodec(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PWaveCodec(model.hp_coder)
+    with PMCTFCodec(model, device="cpu") as codec:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            stream_gop(codec, [], [], 10, "unused")
