@@ -43,9 +43,24 @@ exits non-zero:
    the device's busy time and idle share in one profiled encode+decode
    GOP and one profiled encode-only GOP.
 
+9. ar_causal: the AR LL net (ll_mode="ar") at full width on the partial
+   plane of every wavefront (what the decoder evaluates) against the net
+   on the whole plane (what the encoder evaluates), luma 72x120 and
+   chroma 2x36x60: table indexes and rounded means must be the same at
+   every front's positions;
+10. ar_stream_small_reference: phase 7 with the AR LL coder;
+11. ar_slice: the full-width pMCTF-L with the AR LL coder: the estimate
+   GOP-4 (warm-up, 3 timed runs) and the stream GOP-4 as in phase 8,
+   with the LL fronts, the device-to-host copies and the seconds in the
+   AR decoder counted;
+12. cli: the eval CLI (learned_pmctf_tpu_torch.cli.flex) in its own
+   process on a synthetic 1080p GOP-4 at two q indexes, AR, with
+   streams: exit code, its JSON files' keys, finite metrics, bits > 0.
+
 Then it prints the variants the main path did not take, the kernels line
 (one entry a variant the main path launched; ``launches`` counts the
-estimate GOP-4, ``stream_launches`` the stream GOP-4) and, last,
+estimate GOP-4, ``stream_launches`` the stream GOP-4, ``ar_launches`` and
+``ar_stream_launches`` the same with the AR LL coder) and, last,
 {"ok": true, "device": ...}.
 """
 
@@ -104,7 +119,8 @@ def phase_device():
     disable_tf32()
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "cudnn": torch.backends.cudnn.version()})
     return smi
 
 
@@ -306,16 +322,22 @@ def check_outputs(out, h, w):
         raise AssertionError(f"bad bit estimates {bits}")
 
 
-def phase_slice(smi):
+def postprocess_launches(w, planes):
+    """conv3x3 launches by variant of `planes` PostProcess calls: one
+    1->64 conv, thirteen 64->64, one 64->1 each."""
+    from learned_pmctf_tpu_torch.ops.conv3x3 import variants_for
+    return {variants_for(1, 64, w)[0]: planes,
+            variants_for(64, 64, w)[0]: 13 * planes,
+            variants_for(64, 1, w)[0]: planes}
+
+
+def timed_code_gop(model, luma, chroma):
+    """The estimate GOP: a warm-up, a run whose conv3x3 launches are
+    counted (a GOP-4 reconstructs 2 planes a frame), then 3 timed runs.
+    Returns the counted run's output and the numbers."""
     from learned_pmctf_tpu_torch.gop import code_gop
-    from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
-    from learned_pmctf_tpu_torch.models.postprocess import PostProcess
-    from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3, variants_for
+    from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3
     h, w = LUMA
-    t0 = time.perf_counter()
-    model = build_pmctf("cuda", seed=0, num_me_stages=4)
-    build_s = time.perf_counter() - t0
-    luma, chroma = synthetic_gop(GOP, h, w, "cuda")
 
     def run():
         out = code_gop(model, luma, chroma, 10.0)
@@ -326,17 +348,11 @@ def phase_slice(smi):
     conv3x3.launches, conv3x3.by_variant = 0, {}
     out = run()
     launches, by_variant = conv3x3.launches, dict(conv3x3.by_variant)
-    if launches != 15 * 2 * GOP:
-        raise AssertionError(f"conv3x3 launched {launches} times, "
-                             f"expected {15 * 2 * GOP}")
-    # a PostProcess call: one 1->64 conv, thirteen 64->64, one 64->1
-    expected = {variants_for(1, 64, w)[0]: 2 * GOP,
-                variants_for(64, 64, w)[0]: 13 * 2 * GOP,
-                variants_for(64, 1, w)[0]: 2 * GOP}
-    if by_variant != expected:
-        raise AssertionError(f"launches by variant {by_variant}, expected {expected}")
+    expected = postprocess_launches(w, 2 * GOP)
+    if launches != 15 * 2 * GOP or by_variant != expected:
+        raise AssertionError(f"conv3x3 launched {launches} times, by variant "
+                             f"{by_variant}, expected {expected}")
     check_outputs(out, h, w)
-
     torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(3):
@@ -344,7 +360,25 @@ def phase_slice(smi):
         run()
         times.append((time.perf_counter() - t) * 1e3)
     gop_ms = statistics.median(times)
-    peak = torch.cuda.max_memory_allocated()
+    return out, {"conv3x3_launches": launches,
+                 "conv3x3_launches_by_variant": by_variant,
+                 "gop_ms": gop_ms, "gop_ms_runs": times,
+                 "frames_per_s": GOP / (gop_ms / 1e3),
+                 "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_slice(smi):
+    from learned_pmctf_tpu_torch.gop import code_gop
+    from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
+    from learned_pmctf_tpu_torch.models.postprocess import PostProcess
+    from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3
+    h, w = LUMA
+    t0 = time.perf_counter()
+    model = build_pmctf("cuda", seed=0, num_me_stages=4)
+    build_s = time.perf_counter() - t0
+    luma, chroma = synthetic_gop(GOP, h, w, "cuda")
+    out, est = timed_code_gop(model, luma, chroma)
+    by_variant = est["conv3x3_launches_by_variant"]
 
     # GOP-16, the length bench.py codes: one cold run of its 15 pairs
     luma16, chroma16 = synthetic_gop(16, h, w, "cuda", seed=2)
@@ -363,18 +397,16 @@ def phase_slice(smi):
     for m in posts:
         m.use_kernel = False
     t = time.perf_counter()
-    plain = run()
+    plain = code_gop(model, luma, chroma, 10.0)
+    torch.cuda.synchronize()
     plain_gop_ms = (time.perf_counter() - t) * 1e3
     for m in posts:
         m.use_kernel = True
     diff = compare_gops(out, plain, "GOP-4, kernel vs plain PostProcess")
     emit({"phase": "slice", "model": "pMCTF-L full width (seeded random weights)",
           "gop": GOP, "luma": [h, w], "chroma": [2, h // 2, w // 2],
-          "q_index": 10, "model_build_s": build_s,
-          "conv3x3_launches": launches, "conv3x3_launches_by_variant": by_variant,
-          "gop_ms": gop_ms, "gop_ms_runs": times,
-          "frames_per_s": GOP / (gop_ms / 1e3),
-          "peak_mem_bytes": peak, "plain_postprocess_gop_ms": plain_gop_ms,
+          "q_index": 10, "model_build_s": build_s, **est,
+          "plain_postprocess_gop_ms": plain_gop_ms,
           "gop16_ms": gop16_ms, "gop16_frames_per_s": 16 / (gop16_ms / 1e3),
           "gop16_conv3x3_launches": launches16,
           "max_abs_recon_diff_vs_plain": diff,
@@ -483,29 +515,35 @@ def check_stream(out, what):
                              f"side: {out['max_err']}")
 
 
-def phase_stream_small_reference():
+def phase_stream_small_reference(ll_mode="fourstep"):
+    """The small model's stream GOP-4 on the card and on the CPU; with
+    ll_mode="ar" its AR nets at unit gain (see unit_gain_ar)."""
     from learned_pmctf_tpu_torch.codec.video_codec import PMCTFCodec
     from learned_pmctf_tpu_torch.gop import stream_gop
     from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
     cfg = dict(decomp_levels=2, num_me_stages=2, channel_mv=8, channel_n=8,
-               features=16, ar_features=16)
+               features=16, ar_features=16, ll_mode=ll_mode)
+    name = "stream_small_reference" if ll_mode == "fourstep" else "ar_stream_small_reference"
     luma, chroma = synthetic_gop(GOP, 64, 64, "cpu", seed=1)
     outs, files = {}, {}
     for dev in ("cpu", "cuda"):
+        model = build_pmctf(dev, seed=1, **cfg)
+        if ll_mode == "ar":
+            unit_gain_ar(model)
         with tempfile.TemporaryDirectory() as d, \
-                PMCTFCodec(build_pmctf(dev, seed=1, **cfg), device=dev) as codec:
+                PMCTFCodec(model, device=dev) as codec:
             codec.update()
             outs[dev] = stream_gop(codec, luma, chroma, 10.0, d, psize=64,
                                    device=dev)
             files[dev] = stream_files(d)
-        check_stream(outs[dev], f"small stream GOP-4 on {dev}")
+        check_stream(outs[dev], f"{name} on {dev}")
     err = 0.0
     for plane in ("luma", "chroma"):
         for x, y in zip(outs["cuda"][plane], outs["cpu"][plane]):
             err = max(err, float((x.cpu() - y).abs().max()))
     if not err < 5e-2:
-        raise AssertionError(f"small stream GOP-4: card and CPU differ by {err}")
-    emit({"phase": "stream_small_reference", "gop": GOP, "size": [64, 64],
+        raise AssertionError(f"{name}: card and CPU differ by {err}")
+    emit({"phase": name, "ll_mode": ll_mode, "gop": GOP, "size": [64, 64],
           "max_abs_recon_diff_card_vs_cpu": err, "recon_abs_tol": 5e-2,
           "bytes_equal_card_vs_cpu": files["cuda"] == files["cpu"],
           "files_differing": sorted(f for f in files["cpu"]
@@ -514,20 +552,38 @@ def phase_stream_small_reference():
           "bits_cpu": {str(k): v for k, v in outs["cpu"]["bits"].items()}})
 
 
-def phase_stream(smi, model, luma, chroma, est_bits):
-    """The real-bitstream GOP-4 at full width (see the module docstring)."""
+def stream_ar_expect(model):
+    """What an AR stream GOP-4 must count: LL fronts (a GOP-4 codes 4
+    luma and 4 chroma pWave planes, each coder's LL decoded front by
+    front), and device-to-host copies with decoding (one a front, 4 a
+    four-step subband, 4 MV passes a pair, one bulk copy a compress and
+    a pair's MV encode, one check a pair) and without."""
+    from learned_pmctf_tpu_torch.codec.image_codec import ar_wavefronts
+    h, w = LUMA
+    L = model.hp_coder.decomp_levels
+    fronts = GOP * (len(ar_wavefronts(h >> L, w >> L))
+                    + len(ar_wavefronts(h >> (L + 1), w >> (L + 1))))
+    pairs, planes = GOP - 1, 2 * GOP
+    bulk = 2 * GOP + pairs
+    return {"ar_fronts": fronts,
+            "syncs": fronts + planes * 4 * 3 * L + 4 * pairs + bulk + pairs,
+            "encode_only_syncs": bulk}
+
+
+def stream_runs(model, luma, chroma, est_bits, ll_mode="fourstep"):
+    """The real-bitstream GOP-4 at full width (see the module docstring):
+    a warm-up and 3 timed encode+decode runs, an encode-only run, an
+    overlapped-decode run and two profiled GOPs. Returns the phase's
+    numbers and the launches by variant of one encode+decode run."""
     from learned_pmctf_tpu_torch.codec.video_codec import PMCTFCodec
     from learned_pmctf_tpu_torch.gop import stream_gop
-    from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3, variants_for
+    from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3
     h, w = LUMA
-    # a PostProcess call: one 1->64 conv, thirteen 64->64, one 64->1; a
-    # GOP-4 reconstructs 8 planes a side (3 pairs' H bands, the L bands)
-    per_side = {variants_for(1, 64, w)[0]: 2 * GOP,
-                variants_for(64, 64, w)[0]: 13 * 2 * GOP,
-                variants_for(64, 1, w)[0]: 2 * GOP}
-    row = {"phase": "stream", "model": "pMCTF-L full width (seeded random weights)",
-           "gop": GOP, "luma": [h, w], "chroma": [2, h // 2, w // 2],
-           "q_index": 10, "card": smi}
+    # a GOP-4 reconstructs 8 planes a side (3 pairs' H bands, the L bands)
+    per_side = postprocess_launches(w, 2 * GOP)
+    ar = stream_ar_expect(model) if ll_mode == "ar" else None
+    row = {"model": "pMCTF-L full width (seeded random weights)", "ll_mode": ll_mode,
+           "gop": GOP, "luma": [h, w], "chroma": [2, h // 2, w // 2], "q_index": 10}
     t0 = time.perf_counter()
     codec = PMCTFCodec(model)
     codec.update()
@@ -560,10 +616,20 @@ def phase_stream(smi, model, luma, chroma, est_bits):
         elif files != ref_files:
             raise AssertionError(f"stream {name}: stream bytes differ from the "
                                  "first run's")
-        stats = {"ms": ms, "syncs": codec.stats.syncs,
-                 "rans_encode_ms": codec.stats.rans_encode_s * 1e3,
-                 "rans_decode_ms": codec.stats.rans_decode_s * 1e3,
-                 "conv3x3_launches": conv3x3.launches}
+        st = codec.stats
+        stats = {"ms": ms, "syncs": st.syncs,
+                 "rans_encode_ms": st.rans_encode_s * 1e3,
+                 "rans_decode_ms": st.rans_decode_s * 1e3,
+                 "conv3x3_launches": conv3x3.launches,
+                 "ar_fronts": st.ar_fronts, "ar_decode_ms": st.ar_decode_s * 1e3}
+        if ar is not None and not kw and (st.ar_fronts, st.syncs) != (
+                ar["ar_fronts"], ar["syncs"]):
+            raise AssertionError(f"stream {name}: {st.ar_fronts} AR fronts and "
+                                 f"{st.syncs} copies, expected {ar}")
+        if ar is not None and kw.get("skip_decoding") and (
+                st.ar_fronts, st.syncs) != (0, ar["encode_only_syncs"]):
+            raise AssertionError(f"stream {name}: {st.ar_fronts} AR fronts and "
+                                 f"{st.syncs} copies encode-only, expected {ar}")
         return out, stats, by_variant
 
     try:
@@ -609,7 +675,14 @@ def phase_stream(smi, model, luma, chroma, est_bits):
         "stream_file_bytes": nbytes,
         "bytes_identical_across_runs": True,
         "profile": profiles})
-    emit(row)
+    if ar is not None:
+        row["expected_counts"] = ar
+    return row, by_variant
+
+
+def phase_stream(smi, model, luma, chroma, est_bits):
+    row, by_variant = stream_runs(model, luma, chroma, est_bits)
+    emit({"phase": "stream", **row, "card": smi})
     return by_variant
 
 
@@ -634,6 +707,171 @@ def profile_stream(codec, d, luma, chroma, **kw):
                                   for e in top[:6]}}
 
 
+AR_LL = {"luma": (1, 1, LUMA[0] >> 4, LUMA[1] >> 4),
+         "chroma": (2, 1, LUMA[0] >> 5, LUMA[1] >> 5)}
+
+
+def unit_gain_ar(model, seed=5):
+    """Redraw every AR LL net in `model` at unit gain (std 1/sqrt(fan-in),
+    bias std 0.5), seeded. At the init's std of 0.02 the nets' scales all
+    fall in the lowest few table rows and their means round to 0, where
+    neither a flipped bit nor the decoder's use of the means would show;
+    at unit gain they span most of the table and the means reach tens."""
+    from learned_pmctf_tpu_torch.models.context import ContextFusionSubband
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for net in model.modules():
+            if not isinstance(net, ContextFusionSubband):
+                continue
+            for m in net.modules():
+                if isinstance(m, torch.nn.Conv2d):
+                    m.weight.copy_(torch.randn(m.weight.shape, generator=g)
+                                   / m.weight[0].numel() ** 0.5)
+                    m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.5)
+    return model
+
+
+def ar_test_coder(features=128):
+    """A pWave coder with the AR LL model at full width, seeded, its AR
+    net at unit gain."""
+    from learned_pmctf_tpu_torch.models.layers import init_params
+    from learned_pmctf_tpu_torch.models.pwave import PWave
+    coder = init_params(PWave(ll_mode="ar", ar_features=features),
+                        torch.Generator().manual_seed(3))
+    return unit_gain_ar(coder).to("cuda").eval()
+
+
+def phase_ar_causal(coder):
+    """The AR LL net on the partial plane of every front against the net
+    on the whole plane, at full width (the decoder evaluates the first,
+    the encoder the second): the table indexes and rounded means at each
+    front's positions must be the same, or the range coder loses sync.
+    Also counts the raw f32 scales and means that differ there, and times
+    one evaluation (what the decoder pays a front on the device)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from learned_pmctf_tpu_torch.codec.image_codec import (PWaveCodec,
+                                                           ar_wavefronts)
+    codec = PWaveCodec(coder)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    row = {"phase": "ar_causal", "ar_features": coder.context_fusion[-1]["ll"]
+           .maskedConv1.out_channels, "planes": {}}
+    with torch.no_grad():
+        for name, shape in AR_LL.items():
+            full = torch.round(torch.randn(shape, device="cuda", generator=g) * 60)
+            ref = codec._ar_plane(full)
+            ref_raw = torch.cat(coder.ar_params(full))
+            order = torch.zeros(shape[2:], dtype=torch.long, device="cuda")
+            fronts = ar_wavefronts(*shape[2:])
+            for t, (rows, cols) in enumerate(fronts):
+                order[rows, cols] = t
+            compared = mismatches = raw_mismatches = 0
+            for t, (rows, cols) in enumerate(fronts):
+                partial = torch.where(order < t, full, torch.zeros_like(full))
+                got = codec._ar_plane(partial)[:, :, :, rows, cols]
+                raw = torch.cat(coder.ar_params(partial))[:, :, rows, cols]
+                compared += got[0].numel()
+                mismatches += int((got != ref[:, :, :, rows, cols]).any(0).sum())
+                raw_mismatches += int((raw != ref_raw[:, :, rows, cols]).sum())
+            row["planes"][name] = {"shape": list(shape), "fronts": len(fronts),
+                                   "positions_compared": compared,
+                                   "mismatches": mismatches,
+                                   "raw_f32_mismatches": raw_mismatches,
+                                   "ar_plane_ms": cuda_ms(lambda: codec._ar_plane(full))}
+            # the kernels cuDNN runs the masked convs with (a Winograd or
+            # FFT algorithm would mix the masked inputs into every output)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                codec._ar_plane(full)
+                torch.cuda.synchronize()
+            row["planes"][name]["device_kernels"] = sorted(
+                {e.key[:100] for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation})
+    emit(row)
+    bad = {k: v["mismatches"] for k, v in row["planes"].items() if v["mismatches"]}
+    if bad:
+        raise AssertionError(f"ar_causal: the partial-plane AR outputs differ "
+                             f"from the full plane's at {bad} positions")
+    return row
+
+
+def phase_ar_slice(smi):
+    """Full-width pMCTF-L with the AR LL coder (its AR nets at unit gain):
+    the estimate GOP-4 and the stream GOP-4 as for the four-step model,
+    with the AR front count and the copies to the host checked."""
+    from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
+    h, w = LUMA
+    model = unit_gain_ar(build_pmctf("cuda", seed=0, num_me_stages=4, ll_mode="ar"))
+    luma, chroma = synthetic_gop(GOP, h, w, "cuda")
+    out, est = timed_code_gop(model, luma, chroma)
+    stream, stream_by_variant = stream_runs(model, luma, chroma, out["bits"],
+                                            ll_mode="ar")
+    emit({"phase": "ar_slice", "estimate": est, "stream": stream, "card": smi})
+    del model, luma, chroma
+    torch.cuda.empty_cache()
+    return est["conv3x3_launches_by_variant"], stream_by_variant
+
+
+# the per-sequence log of the JAX package's test_pmctf_flex.py (its
+# run_test plus main's two keys), its dataset average and its summary
+CLI_LOG_KEYS = {
+    "frame_pixel_num", "i_frame_num", "p_frame_num", "b_frame_num", "frame_bpp",
+    "frame_bpp_mv", "frame_psnr", "frame_psnr_rgb", "frame_msssim", "frame_type",
+    "test_time", "ave_i_frame_bpp", "ave_i_frame_psnr", "ave_i_frame_psnr_rgb",
+    "ave_i_frame_msssim", "ave_p_frame_bpp", "ave_p_frame_psnr",
+    "ave_p_frame_psnr_rgb", "ave_p_frame_msssim", "ave_p_frame_bpp_mv",
+    "ave_all_frame_bpp", "ave_all_frame_bpp_mv", "ave_all_frame_psnr",
+    "ave_all_frame_psnr_rgb", "ave_all_frame_msssim", "avg_p_encoding_time_ms",
+    "avg_p_decoding_time_ms", "ds_name", "video_path"}
+CLI_AVERAGE_KEYS = {
+    "test_time", "ave_p_frame_bpp", "ave_p_frame_psnr", "ave_p_frame_psnr_rgb",
+    "ave_p_frame_msssim", "ave_all_frame_bpp", "ave_all_frame_bpp_mv",
+    "ave_all_frame_psnr", "ave_all_frame_psnr_rgb", "ave_all_frame_msssim"}
+CLI_SUMMARY_KEYS = {"bpp", "psnr-rgb", "psnr-yuv", "quality", "ms-ssim-rgb", "bpp_mv"}
+
+
+def phase_cli(smi):
+    """The eval CLI as a user runs it, in its own process: a synthetic
+    1080p GOP-4 at two q indexes, AR LL, written to streams and decoded."""
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m", "learned_pmctf_tpu_torch.cli.flex",
+               "--synthetic", "4", "--synthetic_size", "1080x1920",
+               "--force_intra_period", "4", "--q_index_num", "2",
+               "--num_me_stages", "4", "--ll_mode", "ar", "--write_stream", "1",
+               "--output_path", os.path.join(d, "out.json"),
+               "--stream_path", os.path.join(d, "bin")]
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        wall_s = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"cli exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+                                 f"\n{proc.stderr[-3000:]}")
+        logs = {}
+        for q in (0, 20):
+            with open(os.path.join(d, f"out_qidx{q}.json")) as f:
+                res = json.load(f)["synthetic_ds"]
+            log = res["synthetic"]
+            if set(log) != CLI_LOG_KEYS or set(res["AVERAGE"]) != CLI_AVERAGE_KEYS:
+                raise AssertionError(f"cli q{q}: keys {sorted(set(log) ^ CLI_LOG_KEYS)}"
+                                     f" {sorted(set(res['AVERAGE']) ^ CLI_AVERAGE_KEYS)}")
+            vals = log["frame_psnr"] + log["frame_psnr_rgb"] + log["frame_msssim"]
+            if not (all(v == v and abs(v) != float("inf") for v in vals)
+                    and all(0 < v <= 1 for v in log["frame_msssim"])
+                    and all(b > 0 for b in log["frame_bpp"])):
+                raise AssertionError(f"cli q{q}: bad metrics or bits {log}")
+            logs[q] = {k: log[k] for k in ("frame_bpp", "frame_psnr", "frame_psnr_rgb",
+                                           "frame_msssim", "ave_all_frame_bpp",
+                                           "ave_all_frame_psnr",
+                                           "avg_p_encoding_time_ms",
+                                           "avg_p_decoding_time_ms", "test_time")}
+        with open(os.path.join(d, "out_summary.json")) as f:
+            summary = json.load(f)
+        if set(summary) != CLI_SUMMARY_KEYS or summary["quality"] != ["0", "20"]:
+            raise AssertionError(f"cli summary {summary}")
+    emit({"phase": "cli", "command": " ".join(cmd[1:]), "wall_s": wall_s,
+          "logs": logs, "summary": summary, "card": smi})
+
+
 # variant -> its source and the kernel-phase shape that stands for it
 VARIANT_ROWS = {
     "wgmma_3xtf32": ("conv3x3_wgmma.cu", "luma 64->64 leaky_relu"),
@@ -643,9 +881,10 @@ VARIANT_ROWS = {
 }
 
 
-def kernel_entries(rows, by_variant, stream_by_variant):
+def kernel_entries(rows, launches):
     """One entry a variant: the variant's numbers at the shape that stands
-    for it, whether the shape took it or timed it beside its own."""
+    for it, whether the shape took it or timed it beside its own.
+    `launches`: path -> launches by variant of that path's counted run."""
     by_shape = {r["shape"]: r for r in rows}
     entries = []
     for variant, (source, shape) in VARIANT_ROWS.items():
@@ -659,8 +898,8 @@ def kernel_entries(rows, by_variant, stream_by_variant):
             "name": f"conv3x3/{variant}", "route": "cuda",
             "source": f"learned_pmctf_tpu_torch/csrc/{source}",
             "replaces": "learned_pmctf_tpu/ops/pallas_conv.py:159",
-            "launches": by_variant.get(variant, 0),
-            "stream_launches": stream_by_variant.get(variant, 0),
+            "launches": launches["launches"].get(variant, 0),
+            **{k: v.get(variant, 0) for k, v in launches.items() if k != "launches"},
             "max_abs_err": max(r["max_abs_err"] for r in rows if r["variant"] == variant)
             if own else row[f"{variant}_max_abs_err"],
             "ms": row["ms"] if own else row[f"{variant}_ms"],
@@ -679,13 +918,24 @@ def main():
     by_variant, slice_run = phase_slice(smi)
     phase_stream_small_reference()
     stream_by_variant = phase_stream(smi, *slice_run)
-    entries = kernel_entries(rows, by_variant, stream_by_variant)
+    del slice_run
+    torch.cuda.empty_cache()
+    phase_ar_causal(ar_test_coder())
+    phase_stream_small_reference("ar")
+    ar_by_variant, ar_stream_by_variant = phase_ar_slice(smi)
+    phase_cli(smi)
+    # launches by path: the estimate GOP-4 ("launches"), the stream GOP-4,
+    # and both again with the AR LL coder
+    launches = {"launches": by_variant, "stream_launches": stream_by_variant,
+                "ar_launches": ar_by_variant,
+                "ar_stream_launches": ar_stream_by_variant}
+    entries = kernel_entries(rows, launches)
     on_path = [e for e in entries if e["launches"] > 0]
     if {e["name"].split("/")[1] for e in on_path} != set(by_variant):
         raise AssertionError(f"no kernel-phase row for a variant of {by_variant}")
-    if any(e["stream_launches"] == 0 for e in on_path):
+    if any(e[k] == 0 for e in on_path for k in launches):
         raise AssertionError(f"a kernel of the estimate path was not launched "
-                             f"by the stream path: {stream_by_variant}")
+                             f"by another path: {launches}")
     # variants the kernel phase launched and checked but the main path did
     # not take: the same keys, on a line of their own
     emit({"off_path_variants": [e for e in entries if e["launches"] == 0]})

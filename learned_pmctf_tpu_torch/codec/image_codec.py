@@ -1,6 +1,7 @@
-"""Host bitstream codec for the pWave image coder (``ll_mode="fourstep"``).
+"""Host bitstream codec for the pWave image coder.
 
-Counterpart of learned_pmctf_tpu/codec/image_codec.py:PWaveCodec.
+Counterpart of learned_pmctf_tpu/codec/image_codec.py:PWaveCodec, for
+both LL coders (``ll_mode="fourstep"`` and the reference's ``"ar"``).
 
 - compress is *decode with teacher-forced symbols*: it replays the
   decompress loop (the same module calls on the same shapes in the same
@@ -14,7 +15,13 @@ Counterpart of learned_pmctf_tpu/codec/image_codec.py:PWaveCodec.
   copy of every symbol and index plane to the host.
 - decompress: each four-step subband needs 4 rANS round trips (each
   pass's symbols are inputs of the next pass's parameters); between
-  them the fusion module's parameter nets run on the device.
+  them the fusion module's parameter nets run on the device. The AR LL
+  subband decodes by anti-diagonal wavefronts (``ar_wavefronts``): one
+  evaluation of the AR net on the partial plane, one copy to the host and
+  one rANS call a front, 2(h-1)+w fronts for an h x w plane. The encoder
+  evaluates the same net once on the whole teacher plane; the net is
+  strictly causal and its masked taps are exactly zero, so at each front
+  both sides compute the same bits.
 
 Streams go port to port on devices of one kind: the CDF-table indexes
 are computed with the device's ``log`` (entropy/coder.py).
@@ -33,7 +40,7 @@ from ..entropy.coder import (EntropyCoder, GaussianEncoder,
                              build_indexes_from_scales)
 from ..models.pwave import BANDS, PWave
 from ..ops.masks import PHASES
-from ..runtime import resolve_device
+from ..runtime import deterministic_cudnn, disable_tf32, resolve_device
 from ..utils.stream import decode_image, encode_image
 
 
@@ -46,9 +53,9 @@ STREAM_PART = 2
 
 class HostStats:
     """What the host does for a codec, summed over its threads: copies
-    from the device (each one waits for the device's queue to drain) and
-    seconds spent in rANS calls (threads overlap, so the sums may exceed
-    the wall time)."""
+    from the device (each one waits for the device's queue to drain),
+    seconds spent in rANS calls, and the AR LL decoder's fronts and
+    seconds (threads overlap, so the sums may exceed the wall time)."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -59,6 +66,8 @@ class HostStats:
             self.syncs = 0
             self.rans_encode_s = 0.0
             self.rans_decode_s = 0.0
+            self.ar_fronts = 0
+            self.ar_decode_s = 0.0
 
     def to_host(self, t: torch.Tensor) -> np.ndarray:
         with self._lock:
@@ -69,6 +78,11 @@ class HostStats:
         with self._lock:
             name = f"rans_{kind}_s"
             setattr(self, name, getattr(self, name) + seconds)
+
+    def add_ar_decode(self, fronts: int, seconds: float):
+        with self._lock:
+            self.ar_fronts += fronts
+            self.ar_decode_s += seconds
 
 
 def bulk_fetch_int32(tensors, stats: HostStats):
@@ -86,9 +100,35 @@ def bulk_fetch_int32(tensors, stats: HostStats):
     return out
 
 
+def ar_wavefronts(h: int, w: int):
+    """Anti-diagonal wavefronts t = 2*row + col of the AR LL model.
+
+    The masked-conv stack's dependency cone is (row, col) <- {(row, <col),
+    (row-k, <= col+k)}: each causal 3x3 layer (models.context.
+    AR_MASKED_KERNEL) that crosses a row up can shift one column right. Every position on front t therefore depends
+    only on positions with t' < t, so a whole front decodes from one
+    evaluation of the net and one rANS call. Returns (rows, cols) index
+    arrays, one pair a non-empty front, ordered by t, then by row."""
+    fronts = []
+    for t in range(2 * (h - 1) + w):
+        rows = []
+        cols = []
+        for r in range(min(h - 1, t // 2), -1, -1):
+            c = t - 2 * r
+            if 0 <= c < w:
+                rows.append(r)
+                cols.append(c)
+        if rows:
+            order = np.argsort(rows)
+            fronts.append((np.asarray(rows)[order], np.asarray(cols)[order]))
+    return fronts
+
+
 class PWaveCodec:
     """Host wrapper: a PWave module -> real bitstreams and back. It runs
     on CUDA unless the caller passes device="cpu" (with the module there).
+    Construction turns TF32 off and makes cuDNN deterministic for the
+    process, as PMCTFCodec does.
 
     em: the Laplace tables to code with, built here when not given
     (PMCTFCodec shares one set between its two PWaveCodecs)."""
@@ -99,6 +139,8 @@ class PWaveCodec:
         if next(module.parameters()).device.type != dev.type:
             raise ValueError(f"module is on {next(module.parameters()).device}, "
                              f"the codec asked for {dev}")
+        disable_tf32()
+        deterministic_cudnn()
         self.module = module
         self.coder = self.make_coder()
         if em is None:
@@ -164,13 +206,63 @@ class PWaveCodec:
                 scales, means = fusion.spatial_params(x_hat, ctx_feat, step)
         return x_hat, plan
 
+    def _ar_plane(self, partial):
+        """The AR net's table indexes and rounded means on a (partial)
+        LL plane, stacked as one int32 tensor (2, B, C, H, W).
+
+        The decoder calls it on the partial plane once a front, the
+        encoder once on the whole teacher plane: strict causality and
+        masked taps that are exactly zero make the outputs at each front
+        the same bits on both sides. Both planes are integers, so one
+        copy a front takes them to the host."""
+        scales, means = self.module.ar_params(partial)
+        return torch.stack([build_indexes_from_scales(scales),
+                            torch.round(means).to(torch.int32)])
+
+    def _decode_ar_ll(self, shape, coder=None):
+        """Decode the AR LL plane front by front (see ar_wavefronts): an
+        evaluation of the net, one copy to the host and one rANS call a
+        front. Symbols are in (n, b, c) order: front positions major,
+        batch times channel minor, as the encoder writes them."""
+        coder = coder or self.coder
+        t_start = time.perf_counter()
+        _, _, h, w = shape
+        partial = torch.zeros(shape, device=self.device)
+        fronts = ar_wavefronts(h, w)
+        for rows, cols in fronts:
+            both = self.stats.to_host(self._ar_plane(partial))
+            idx = both[0][:, :, rows, cols].transpose(2, 0, 1)
+            t0 = time.perf_counter()
+            vals = coder.decode_stream(idx, *self.em.tables())
+            self.stats.add_rans("decode", time.perf_counter() - t0)
+            vals = (vals.reshape(idx.shape).astype(np.int32)
+                    + both[1][:, :, rows, cols].transpose(2, 0, 1))
+            partial[:, :, torch.from_numpy(rows), torch.from_numpy(cols)] = (
+                torch.from_numpy(vals.transpose(1, 2, 0)).to(self.device,
+                                                              torch.float32))
+        self.stats.add_ar_decode(len(fronts), time.perf_counter() - t_start)
+        return partial
+
+    def _encode_ar(self, coder, ll_int, both):
+        """The AR LL symbols into `coder`, one call a front in the
+        decoder's order: the multi-part encoder splits each call's
+        symbols across its substreams, so the two sides must chunk the
+        sequence alike."""
+        syms = ll_int - both[1]
+        for rows, cols in ar_wavefronts(*syms.shape[2:]):
+            coder.encode_with_indexes(syms[:, :, rows, cols].transpose(2, 0, 1),
+                                      both[0][:, :, rows, cols].transpose(2, 0, 1),
+                                      *self.em.tables())
+
     def _code_planes(self, batch: int, new_h: int, new_w: int, teachers=None,
                      coder=None):
         """The coding-order loop of compress and decompress.
 
         teachers=None decodes from `coder`; teachers=<quantize_planes
         output> replays it teacher-forced and returns the plans in stream
-        order. Returns (subbands_hat, plans)."""
+        order, one (kind, device tensors) a subband: ("fs", [symbols,
+        indexes] of the 4 passes) or, for the AR LL, ("ar", [rounded
+        plane, _ar_plane of it]). Returns (subbands_hat, plans)."""
         module = self.module
         L = module.decomp_levels
         subbands_hat = {lvl: {} for lvl in range(L)}
@@ -180,10 +272,17 @@ class PWaveCodec:
             teacher = None if teachers is None else teachers[key]
             s_hat, plan = self._code_fourstep(key, shape, ctx, prev, teacher, coder)
             if plans is not None:
-                plans.append(plan)
+                plans.append(("fs", [t for pair in plan for t in pair]))
             return s_hat
 
-        ll_hat = code("ll", (batch, 1, new_h >> L, new_w >> L), None, None)
+        ll_shape = (batch, 1, new_h >> L, new_w >> L)
+        if module.ll_mode != "ar":
+            ll_hat = code("ll", ll_shape, None, None)
+        elif teachers is None:
+            ll_hat = self._decode_ar_ll(ll_shape, coder)
+        else:
+            ll_hat = torch.round(teachers["ll"])
+            plans.append(("ar", [ll_hat, self._ar_plane(ll_hat)]))
         subbands_hat[L - 1]["ll"] = ll_hat
         context, states = module.ctx_step(ll_hat, module.ctx_init(ll_hat))
         for lvl in range(L - 1, -1, -1):
@@ -212,16 +311,19 @@ class PWaveCodec:
         b, _, h, w = x.shape
         subbands_hat, plans = self._code_planes(b, h, w, teachers=planes)
         fetched = iter(bulk_fetch_int32(
-            [t for plan in plans for pair in plan for t in pair], self.stats))
+            [t for _, tensors in plans for t in tensors], self.stats))
         # queued before the host's rANS work, which it does not need
         x_hat = self.module.reconstruct(subbands_hat, q_index, qp_scale)
 
         coder = coder or self.coder
         t0 = time.perf_counter()
         coder.reset()
-        for plan in plans:
-            for _ in plan:
-                vals, idx = next(fetched), next(fetched)
+        for kind, tensors in plans:
+            got = [next(fetched) for _ in tensors]
+            if kind == "ar":
+                self._encode_ar(coder, *got)
+                continue
+            for vals, idx in zip(got[::2], got[1::2]):
                 coder.encode_with_indexes(vals, idx, *self.em.tables())
         coder.flush()
         bit_stream = coder.get_encoded_stream()

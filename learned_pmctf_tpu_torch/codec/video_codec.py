@@ -29,7 +29,7 @@ from ..models.mv_coder import (MASK_SCHEDULE, four_part_prior_decode_scales,
 from ..models.pmctf import PMCTF, empty_dpb
 from ..ops.masks import checkerboard_masks
 from ..ops.resample import bilinear_downsample
-from ..runtime import deterministic_cudnn, disable_tf32, resolve_device
+from ..runtime import resolve_device
 from ..utils.stream import decode_p, encode_p, get_downsampled_shape
 from .image_codec import HostStats, PWaveCodec, bulk_fetch_int32
 
@@ -49,17 +49,16 @@ class PMCTFCodec:
     """Real bitstream encode/decode of a PMCTF model, on CUDA unless the
     caller passes device="cpu" (with the model there).
 
-    Construction turns TF32 off and makes cuDNN deterministic (algorithm
-    by shape, no benchmark) for the process: encoder and decoder must run
-    bit-identical convs. Use as a context manager, or call ``close``."""
+    Construction (through its two PWaveCodecs) turns TF32 off and makes
+    cuDNN deterministic (algorithm by shape, no benchmark) for the
+    process: encoder and decoder must run bit-identical convs. Use as a
+    context manager, or call ``close``."""
 
     def __init__(self, model: PMCTF, device="cuda"):
         dev = resolve_device(device)
         if next(model.parameters()).device.type != dev.type:
             raise ValueError(f"model is on {next(model.parameters()).device}, "
                              f"the codec asked for {dev}")
-        disable_tf32()
-        deterministic_cudnn()
         self.model = model
         self.coder = PWaveCodec.make_coder()
         # one set of Laplace tables, read-only, for the MV streams and both

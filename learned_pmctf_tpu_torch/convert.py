@@ -1,4 +1,5 @@
-"""Weights carried across from the JAX package.
+"""Weights from outside the port: the JAX package's params and the
+reference model's torch checkpoints.
 
 ``params_from_jax`` takes the JAX ``PMCTF`` parameters as a nested dict of
 numpy arrays (the flax tree, with or without its top-level "params") and
@@ -7,7 +8,11 @@ returns a state dict for the port's ``PMCTF`` that
 reference torch model's state_dict keys, so this map is the inverse of
 the JAX package's reference-checkpoint converter (flax names on the
 left, reference names on the right). Every JAX leaf must be consumed;
-anything left over raises.
+anything left over raises. The AR LL model's ``mask`` buffers, which
+flax does not keep, are made from ``causal_conv_mask``.
+
+``load_reference_state_dict`` loads a reference checkpoint (or a state
+dict the port saved) into a port ``PMCTF``.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from .ops.masks import causal_conv_mask
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -89,6 +96,23 @@ class _Bridge:
         self.conv(f"{j}/conv", f"{t}.conv")
         self.conv(f"{j}/upsample/Conv2d_0", f"{t}.upsample.0")
 
+    def masked_conv(self, j, t, mask_type):
+        self.conv(j, t)
+        o, i, kh, kw = self.out[f"{t}.weight"].shape
+        self.out[f"{t}.mask"] = causal_conv_mask(kh, kw, mask_type, o, i)
+
+    def ar_fusion(self, j, t):
+        """ContextFusionSubband: an A-masked conv, two MaskResiduals and a
+        B-masked conv, then three 1x1 convs."""
+        self.masked_conv(f"{j}/masked_conv1", f"{t}.maskedConv1", "A")
+        for i in range(2):
+            for k in (1, 2):
+                self.masked_conv(f"{j}/res_blocks_{i}/conv{k}",
+                                 f"{t}.residualBlocks.{i}.conv{k}", "B")
+        self.masked_conv(f"{j}/masked_conv2", f"{t}.maskedConv2", "B")
+        for i in range(3):
+            self.conv(f"{j}/head_{i}", f"{t}.convs.{i}")
+
     def fourstep(self, j, t):
         if self.has(f"{j}/conv1_context/kernel"):
             self.conv(f"{j}/conv1_context", f"{t}.conv1_context")
@@ -138,8 +162,9 @@ class _Bridge:
             for band in ("lh", "hl", "hh"):
                 self.fourstep(f"{j}/context_fusion_{lvl}_{band}",
                               f"{t}.context_fusion.{lvl}.{band}")
-        self.fourstep(f"{j}/context_fusion_ll",
-                      f"{t}.context_fusion.{levels - 1}.ll")
+        ll = (self.ar_fusion if self.has(f"{j}/context_fusion_ll/masked_conv1/kernel")
+              else self.fourstep)
+        ll(f"{j}/context_fusion_ll", f"{t}.context_fusion.{levels - 1}.ll")
 
     def pmctf(self):
         self.pwave("lp_coder", "lp_coder")
@@ -217,3 +242,66 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         raise ValueError(f"{len(unused)} JAX leaves have no home in the port: "
                          f"{unused[:10]}")
     return bridge.out
+
+
+# Parameters of the port that the reference model does not save: the
+# lifting and temporal-filter gains are constants there (not registered
+# parameters), so a reference checkpoint leaves the port's init values,
+# which equal those constants.
+NOT_IN_REFERENCE = ("scale_l", "scale_h", "scale_p", "scale_u")
+
+
+def load_reference_state_dict(path_or_dict, model):
+    """Load a reference pMCTF checkpoint into the port's PMCTF `model`.
+
+    `path_or_dict` is a file that torch.load reads (loaded with
+    weights_only=True) or the state dict itself. As the JAX package's
+    loader does, it unwraps a "state_dict" and then a "net" entry and
+    strips "module." prefixes; then it
+    - sums SpyNet conv1's RGB slices of an 8-input kernel (image 0:3,
+      warped image 3:6, flow 6:8) into the port's 4 luma inputs, as the
+      JAX package's converter does;
+    - checks that every ``.lift_v.`` key equals its ``lift_h`` twin (the
+      column pass shares the row module) and drops it;
+    - checks that every masked conv's ``mask`` is the causal mask the
+      wavefront decoder relies on;
+    - loads strictly: a key the port lacks raises, and so does a port key
+      the checkpoint lacks, unless the reference never saves it
+      (NOT_IN_REFERENCE).
+    A state dict saved by the port itself (4-input conv1, the gains
+    included) loads through the same function. Returns `model`."""
+    sd = path_or_dict
+    if not isinstance(sd, Mapping):
+        sd = torch.load(sd, map_location="cpu", weights_only=True)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    if "net" in sd:
+        sd = sd["net"]
+    sd = {(k[len("module."):] if k.startswith("module.") else k):
+          torch.as_tensor(v).detach().cpu().float() for k, v in sd.items()}
+
+    for k in [k for k in sd if ".lift_v." in k]:
+        twin = k.replace(".lift_v.", ".lift_h.")
+        if twin not in sd or not torch.equal(sd[twin], sd[k]):
+            raise ValueError(f"{k} differs from {twin}: the port shares one "
+                             "lifting module between rows and columns")
+        del sd[k]
+    for k, w in sd.items():
+        if (re.fullmatch(r"optic_flow\.moduleBasic\.\d+\.conv1\.weight", k)
+                and w.shape[1] == 8):
+            sd[k] = torch.cat([w[:, 0:3].sum(1, keepdim=True),
+                               w[:, 3:6].sum(1, keepdim=True), w[:, 6:8]], dim=1)
+
+    own = model.state_dict()
+    extra = sorted(set(sd) - set(own))
+    missing = sorted(k for k in set(own) - set(sd)
+                     if k.rsplit(".", 1)[-1] not in NOT_IN_REFERENCE)
+    if extra or missing:
+        raise ValueError(f"checkpoint does not fit the model: {len(extra)} "
+                         f"keys the port lacks {extra[:10]}, {len(missing)} "
+                         f"port keys missing {missing[:10]}")
+    for k in sd:
+        if k.endswith(".mask") and not torch.equal(sd[k], own[k].cpu()):
+            raise ValueError(f"{k} is not the causal mask of the port's model")
+    model.load_state_dict({**own, **sd}, strict=True)
+    return model

@@ -1,9 +1,10 @@
 """Context models for subband entropy coding.
 
-Counterpart of learned_pmctf_tpu/models/context.py for the
-``ll_mode="fourstep"`` coder: the LSTM subband context (``SubbandContext``)
-and the four-step checkerboard prior (``ContextFusionFourStep``). The
-masked-conv AR model of ``ll_mode="ar"`` is not ported yet.
+Counterpart of learned_pmctf_tpu/models/context.py: the LSTM subband
+context (``SubbandContext``), the masked-conv AR model of the LL subband
+under ``ll_mode="ar"`` (``ContextFusionSubband``, without the context
+branch, which no model builds) and the four-step checkerboard prior
+(``ContextFusionFourStep``).
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import torch.nn as nn
 from ..ops.masks import checkerboard_masks
 from ..ops.quant import ste_round
 from ..ops.resample import nearest_upsample
-from .layers import Conv2d, ContextResidual, DepthConvBlock
+from .layers import (Conv2d, ContextResidual, DepthConvBlock, MaskedConv2d,
+                     leaky_relu)
 
 
 class LSTM2D(nn.Module):
@@ -91,6 +93,58 @@ class SubbandContext(nn.Module):
             h2, c2 = self.deconv_h2[i](h2), self.deconv_c2[i](c2)
             h3, c3 = self.deconv_h3[i](h3), self.deconv_c3[i](c3)
         return h3, ((h1, c1), (h2, c2), (h3, c3))
+
+
+# Kernel size of every masked conv of the AR stack. The codec's wavefront
+# decoder (codec/image_codec.ar_wavefronts) takes its slope t = 2*row + col
+# from it: a causal 3x3 conv reaches at most one column to the right per
+# row up. A larger kernel needs a steeper slope there, or the range coder
+# loses sync.
+AR_MASKED_KERNEL = 3
+
+
+class MaskResidual(nn.Module):
+    """Two B-masked 3x3 convs with LeakyReLU(0.2) between, and a residual."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv1 = MaskedConv2d(channels, channels, AR_MASKED_KERNEL, "B")
+        self.conv2 = MaskedConv2d(channels, channels, AR_MASKED_KERNEL, "B")
+
+    def forward(self, x):
+        return self.conv2(leaky_relu(self.conv1(x), 0.2)) + x
+
+
+class ContextFusionSubband(nn.Module):
+    """PixelCNN-style AR entropy-parameter net of the LL subband.
+
+    The net is strictly causal in its input (an A-masked conv first,
+    B-masked after it, then 1x1 convs), so the encoder runs it once on the
+    whole teacher plane and the decoder re-runs it on the partial
+    reconstruction: at each not yet decoded position the two agree.
+    Returns (B, num_params, H, W) in f32: scales, then means."""
+
+    def __init__(self, in_ch: int = 1, features: int = 128,
+                 num_params: int = 2, residual_blocks: int = 2):
+        super().__init__()
+        self.maskedConv1 = MaskedConv2d(in_ch, features, AR_MASKED_KERNEL, "A")
+        self.residualBlocks = nn.ModuleList(
+            MaskResidual(features) for _ in range(residual_blocks))
+        self.maskedConv2 = MaskedConv2d(features, features, AR_MASKED_KERNEL, "B")
+        self.convs = nn.ModuleList([Conv2d(features, features, 1),
+                                    Conv2d(features, features, 1),
+                                    Conv2d(features, num_params, 1)])
+
+    def forward(self, x):
+        y = conv1 = self.maskedConv1(x)
+        for block in self.residualBlocks:
+            y = block(y)
+        y = leaky_relu(self.maskedConv2(y + conv1), 0.2)
+        for i, conv in enumerate(self.convs):
+            y = conv(y)
+            if i < len(self.convs) - 1:
+                y = leaky_relu(y, 0.2)
+        return y.float()
 
 
 def process_with_mask(y, scales, means, mask, lossy: bool = True):

@@ -1,10 +1,10 @@
 """Neural layer library (NCHW, OIHW weights).
 
 Counterpart of learned_pmctf_tpu/models/layers.py, limited to the blocks
-the pMCTF-L estimate path reaches. Submodules carry the reference torch
+the pMCTF-L coding paths reach. Submodules carry the reference torch
 model's state_dict names (DepthConv's ``conv1.0``, ConvFFN's
-``conv.0``/``conv.2``, SubpelConv's ``.0``), so a reference checkpoint
-maps onto the port key for key.
+``conv.0``/``conv.2``, SubpelConv's ``.0``, MaskedConv2d's ``mask``
+buffer), so a reference checkpoint maps onto the port key for key.
 
 Weights are drawn by ``init_params`` from an explicit torch.Generator:
 truncated normal with std 0.02 (cut at two std, as flax's
@@ -18,6 +18,8 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.masks import causal_conv_mask
 
 # flax's truncated_normal divides by the std of a unit normal cut at +-2
 _TRUNC_STD = 0.87962566103423978
@@ -59,6 +61,23 @@ class Conv2d(nn.Conv2d):
                                       generator=generator)
             if self.bias is not None:
                 self.bias.zero_()
+
+
+class MaskedConv2d(Conv2d):
+    """PixelCNN-masked 'same' conv (mask types A/B/C, see
+    ops.masks.causal_conv_mask). The mask is a buffer, as in the reference
+    model, so its state_dict carries ``.mask``; it is applied to the
+    weight at call time."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
+                 mask_type: str = "A"):
+        super().__init__(in_ch, out_ch, kernel)
+        kh, kw = self.kernel_size
+        self.register_buffer("mask", causal_conv_mask(kh, kw, mask_type,
+                                                      out_ch, in_ch))
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight * self.mask, self.bias)
 
 
 def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:

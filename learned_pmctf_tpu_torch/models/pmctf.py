@@ -1,12 +1,13 @@
 """pMCTF-L video coder.
 
 Counterpart of learned_pmctf_tpu/models/pmctf.py with
-``ll_mode="fourstep"``, ``warp_mode="exact"``, ``spynet_luma=True``, f32:
-two pWave coders for the temporal low/highpass bands, SpyNet motion, the
-MV autoencoder with its four-part prior, learned temporal lifting and
-per-stage highpass quality scaling. The DPB is an explicit dict.
-``forward_one_stage`` is the estimate path; the ``mv_*`` methods are the
-sub-graphs of the bitstream codec (codec/video_codec.py).
+``warp_mode="exact"``, ``spynet_luma=True``, f32 and either LL coder
+(``ll_mode="fourstep"`` or the reference's ``"ar"``, for both pWave
+coders): two pWave coders for the temporal low/highpass bands, SpyNet
+motion, the MV autoencoder with its four-part prior, learned temporal
+lifting and per-stage highpass quality scaling. The DPB is an explicit
+dict. ``forward_one_stage`` is the estimate path; the ``mv_*`` methods
+are the sub-graphs of the bitstream codec (codec/video_codec.py).
 """
 
 from __future__ import annotations
@@ -38,8 +39,10 @@ class PMCTF(nn.Module):
                  lossy: bool = True, num_me_stages: int = 2,
                  quant_stage: bool = True, channel_mv: int = 64,
                  channel_n: int = 64, features: int = 112,
-                 ar_features: int = 128, spynet_levels: int = 6):
+                 ar_features: int = 128, spynet_levels: int = 6,
+                 ll_mode: str = "fourstep"):
         super().__init__()
+        self.ll_mode = ll_mode
         self.dynamic_range = float(2 ** bitdepth - 1)
         self.lossy = lossy
         self.num_me_stages = n = num_me_stages
@@ -47,8 +50,10 @@ class PMCTF(nn.Module):
         self.channel_mv = channel_mv
         c_mv, c_n = channel_mv, channel_n
 
-        self.lp_coder = PWave(bitdepth, decomp_levels, lossy, features, ar_features)
-        self.hp_coder = PWave(bitdepth, decomp_levels, lossy, features, ar_features)
+        self.lp_coder = PWave(bitdepth, decomp_levels, lossy, features,
+                              ar_features, ll_mode)
+        self.hp_coder = PWave(bitdepth, decomp_levels, lossy, features,
+                              ar_features, ll_mode)
         self.optic_flow = MESpynet(spynet_levels)
 
         def per_stage(make):

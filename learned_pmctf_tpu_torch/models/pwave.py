@@ -1,14 +1,15 @@
 """pWave++ wavelet image coder.
 
-Counterpart of learned_pmctf_tpu/models/pwave.py with
-``ll_mode="fourstep"``: 4-level learned 2-D lifting analysis, per-subband
-quantization with a log-interpolated QP range (21 rate points), the LL
-subband and the lh/hl/hh subbands (coarse to fine, with the LSTM subband
-context) coded by four-step checkerboard priors, Laplace rate estimate,
+Counterpart of learned_pmctf_tpu/models/pwave.py: 4-level learned 2-D
+lifting analysis, per-subband quantization with a log-interpolated QP
+range (21 rate points), the LL subband coded by the masked-conv AR model
+(``ll_mode="ar"``, the reference's) or a four-step checkerboard prior
+(``ll_mode="fourstep"``), the lh/hl/hh subbands (coarse to fine, with the
+LSTM subband context) by four-step priors, Laplace rate estimate,
 synthesis and PostProcess. ``forward`` is the estimate path; the
 bitstream codec (codec/image_codec.py) calls ``quantize_planes``,
-``ctx_init``/``ctx_step``, the fusion modules' ``hier_params`` /
-``spatial_params`` and ``reconstruct``.
+``ctx_init``/``ctx_step``, ``ar_params``, the four-step modules'
+``hier_params`` / ``spatial_params`` and ``reconstruct``.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch.nn as nn
 
 from ..entropy.distributions import laplace_bits
 from ..ops.quant import ste_clamp
-from .context import ContextFusionFourStep, SubbandContext
+from .context import ContextFusionFourStep, ContextFusionSubband, SubbandContext
 from .postprocess import PostProcess
 from .wavelet import LiftingScheme2D
 
@@ -40,8 +41,11 @@ class PWave(nn.Module):
 
     def __init__(self, bitdepth: int = 8, decomp_levels: int = 4,
                  lossy: bool = True, features: int = 112,
-                 ar_features: int = 128):
+                 ar_features: int = 128, ll_mode: str = "fourstep"):
         super().__init__()
+        if ll_mode not in ("fourstep", "ar"):
+            raise ValueError(f"unknown ll_mode {ll_mode!r}")
+        self.ll_mode = ll_mode
         self.decomp_levels = decomp_levels
         self.lossy = lossy
         self.dynamic_range = float(2 ** bitdepth)
@@ -55,7 +59,9 @@ class PWave(nn.Module):
             bands = nn.ModuleDict({
                 band: ContextFusionFourStep(1, ctx_ch, features, 2, lossy=lossy)
                 for band in BANDS})
-            if lvl == decomp_levels - 1:
+            if lvl == decomp_levels - 1 and ll_mode == "ar":
+                bands["ll"] = ContextFusionSubband(1, ar_features, 2)
+            elif lvl == decomp_levels - 1:
                 bands["ll"] = ContextFusionFourStep(
                     1, 1, ar_features, 2, use_ctx=False, lossy=lossy)
             fusion.append(bands)
@@ -123,8 +129,13 @@ class PWave(nn.Module):
         subbands_hat: Dict[int, Dict[str, torch.Tensor]] = {l: {} for l in range(L)}
 
         ll = self.quantize_subband(y[L - 1]["ll"], q_scale_ll)
-        _, ll_q, ll_hat, s_hat = fusion[L - 1]["ll"](ll)
-        bits = laplace_bits(ll_q, s_hat).sum(dim=(1, 2, 3))
+        if self.ll_mode == "ar":
+            ll_hat = torch.round(ll)
+            scales, means = self.ar_params(ll_hat)
+            bits = laplace_bits(ll_hat - means, scales).sum(dim=(1, 2, 3))
+        else:
+            _, ll_q, ll_hat, s_hat = fusion[L - 1]["ll"](ll)
+            bits = laplace_bits(ll_q, s_hat).sum(dim=(1, 2, 3))
         subbands_hat[L - 1]["ll"] = ll_hat
 
         b, _, h, w = ll.shape
@@ -174,6 +185,12 @@ class PWave(nn.Module):
 
     def ctx_step(self, subband, states, upsample_level=None):
         return self.context_prediction.step(subband, states, upsample_level)
+
+    def ar_params(self, partial_rec):
+        """(scales, means) of the AR LL model on a (partial) reconstruction."""
+        params = self.context_fusion[self.decomp_levels - 1]["ll"](partial_rec)
+        scales, means = params.chunk(2, dim=1)
+        return scales, means
 
     def reconstruct(self, subbands_hat, q_index=None, qp_scale=None):
         """Dequantize + synthesis + PostProcess (the decode tail)."""

@@ -1,14 +1,22 @@
-"""Bitstream container formats (struct-packed headers).
+"""Bitstream container formats (struct-packed headers) and padding.
 
 Counterpart of learned_pmctf_tpu/utils/stream.py, the functions the
-codecs use; the bytes are the same as the JAX package's (and the
-reference's) containers.
+codecs and the eval CLI use; the bytes are the same as the JAX package's
+(and the reference's) containers.
 """
 
 from __future__ import annotations
 
 import struct
 from pathlib import Path
+
+
+def get_padding_size(height: int, width: int, p: int = 64):
+    """(left, right, top, bottom) zero padding to multiples of p; pads
+    right and bottom only."""
+    new_h = (height + p - 1) // p * p
+    new_w = (width + p - 1) // p * p
+    return 0, new_w - width, 0, new_h - height
 
 
 def get_downsampled_shape(height: int, width: int, p: int):

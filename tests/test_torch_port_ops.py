@@ -145,3 +145,6 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
     with PMCTFCodec(model, device="cpu") as codec:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             stream_gop(codec, [], [], 10, "unused")
+    from learned_pmctf_tpu_torch.cli import flex
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        flex.main(["--synthetic", "4", "--synthetic_size", "64x64"])
