@@ -57,11 +57,37 @@ exits non-zero:
    process on a synthetic 1080p GOP-4 at two q indexes, AR, with
    streams: exit code, its JSON files' keys, finite metrics, bits > 0.
 
+13. train_kernel_grad: Conv3x3Function (the kernel forward, the kernel
+   again for the input gradient) at the training shapes of PostProcess's
+   four convs (pMCTF 8x128x128, pWave 16x256x256): d_x, d_w, d_b,
+   d_residual against the plain version's autograd (1e-3) and float64
+   (1e-4), relative to each gradient's largest magnitude; forward, the
+   d_x launch and the backward timed, d_x beside its bound and one
+   torch.nn.grad.conv2d_input call;
+14. train_small_reference: the small config's GOP-2 train loss and every
+   gradient on the card against the CPU (same weights, noise drawn on
+   the CPU) at a sub-pixel decoded motion: float64 within 1e-9, f32 with
+   PostProcess on the kernel against the same run on its plain version,
+   and f32 card against CPU; PostProcess's conv1/conv3 gradients
+   non-zero on the card; the float64 disagreement at the seeded init
+   (decoded motion exactly 0) reported;
+15. train_pmctf: full-width pMCTF-L at train_pmctf.py's defaults (batch
+   8, 128x128, exact warp): curriculum stage 6 (GOP-4) and stage 8
+   (GOP-16) steps timed, conv3x3 launches counted against the reckoning,
+   peak memory, finite non-zero gradient norms, weight packs fresh after
+   the optimizer step (fused AdamW), the step with PostProcess's weight
+   gradients by weight_grad against one call over the batch, and a profiled
+   GOP-4 step (forward, recompute, backward, by layer, idle share);
+16. train_pwave: full-width pWave at train_pwave.py's defaults (batch 16,
+   256x256), timed;
+17. train_cli: both training CLIs in their own processes on a synthetic
+   PNG dataset: all 8 curriculum stages, a resume, 2 pWave steps.
+
 Then it prints the variants the main path did not take, the kernels line
 (one entry a variant the main path launched; ``launches`` counts the
 estimate GOP-4, ``stream_launches`` the stream GOP-4, ``ar_launches`` and
-``ar_stream_launches`` the same with the AR LL coder) and, last,
-{"ok": true, "device": ...}.
+``ar_stream_launches`` the same with the AR LL coder, ``train_launches``
+a GOP-4 train step) and, last, {"ok": true, "device": ...}.
 """
 
 import json
@@ -872,6 +898,691 @@ def phase_cli(smi):
           "logs": logs, "summary": summary, "card": smi})
 
 
+# ---- training (phases 13-17) -------------------------------------------------
+
+SMALL = dict(decomp_levels=2, num_me_stages=2, channel_mv=8, channel_n=8,
+             features=16, ar_features=16)
+TRAIN_BATCH, TRAIN_PATCH = 8, (128, 128)  # train_pmctf.py's defaults
+PWAVE_BATCH, PWAVE_PATCH = 16, (256, 256)  # train_pwave.py's defaults
+GRAD_TOL = 1e-3   # against the plain version's autograd, of the largest |grad|
+GRAD_F64_TOL = 1e-4  # against float64, of the largest |grad|
+
+
+def _max_rel(a, b):
+    return float((a.double() - b.double()).abs().max()) / max(
+        float(b.double().abs().max()), 1e-30)
+
+
+def conv_grads(fn, x, w, b, r, dy, act):
+    """y and [d_x, d_w, d_b(, d_residual)] of fn by autograd."""
+    leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+    rr = r.detach().clone().requires_grad_() if r is not None else None
+    y = fn(*leaves, act=act, residual=rr)
+    y.backward(dy)
+    return y.detach(), [t.grad for t in leaves] + ([rr.grad] if rr is not None else [])
+
+
+def phase_train_kernel_grad(smi):
+    """Conv3x3Function at the training shapes: the four PostProcess
+    convs at pMCTF's (batch 8, 128x128) and pWave's (batch 16, 256x256)
+    training shapes. Every gradient against the plain version's autograd
+    and float64; the forward, the d_x launch (flipped weights packed and
+    launched, as backward does it) and the full backward timed beside the
+    plain version's and one torch.nn.grad.conv2d_input call."""
+    from learned_pmctf_tpu_torch.ops import conv3x3 as c3
+    g = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    for label, n, hh, ww in (("pmctf", TRAIN_BATCH, *TRAIN_PATCH),
+                             ("pwave", PWAVE_BATCH, *PWAVE_PATCH)):
+        for c, o, act, res in ((1, 64, None, False), (64, 64, "leaky_relu", False),
+                               (64, 64, None, True), (64, 1, None, False)):
+            x = torch.randn(n, c, hh, ww, device="cuda", generator=g)
+            w = torch.randn(o, c, 3, 3, device="cuda", generator=g) / (3 * c ** 0.5)
+            b = torch.randn(o, device="cuda", generator=g) * 0.1
+            r = torch.randn(n, o, hh, ww, device="cuda", generator=g) if res else None
+            dy = torch.randn(n, o, hh, ww, device="cuda", generator=g)
+            before = c3.conv3x3.launches
+            y, got = conv_grads(c3.conv3x3, x, w, b, r, dy, act)
+            torch.cuda.synchronize()
+            launches = c3.conv3x3.launches - before
+            # the references take the kernel's activation pattern: where a
+            # pre-activation lies within the forward's error of 0 the two
+            # forwards may pick different sides of the LeakyReLU, which is
+            # the forward's difference, not the backward's (counted below)
+            g_pre = torch.where(y >= 0, dy, 0.2 * dy) if act == "leaky_relu" else dy
+            _, plain = conv_grads(c3.conv3x3_plain, x, w, b, r, g_pre, None)
+            z64 = c3.conv3x3_plain(x.double(), w.double(), b.double(), None,
+                                   None if r is None else r.double())
+            flips = int(((z64 >= 0) != (y >= 0)).sum()) if act else 0
+            del z64
+            # the weight gradient in one conv2d_weight call over the batch,
+            # which Conv3x3Function does not use (see weight_grad)
+            dw_one = torch.nn.grad.conv2d_weight(x, w.shape, g_pre, padding=1)
+            _, f64 = conv_grads(c3.conv3x3_plain, x.double(), w.double(), b.double(),
+                                None if r is None else r.double(), g_pre.double(), None)
+            names = ["d_x", "d_w", "d_b", "d_residual"][:len(got)]
+            errs = {k: _max_rel(a, e) for k, a, e in zip(names, got, plain)}
+            errs64 = {k: _max_rel(a, e) for k, a, e in zip(names, got, f64)}
+            dw_one_err64 = _max_rel(dw_one, f64[1])
+            del dw_one
+            shape = f"{label} {n}x{c}x{hh}x{ww} {c}->{o}" + (
+                f" {act}" if act else "") + (" residual" if res else "")
+            if launches != 2:
+                raise AssertionError(f"train_kernel_grad {shape}: {launches} conv3x3 "
+                                     "launches for forward+backward, expected 2")
+            bad = {k: v for k, v in errs.items() if not v <= GRAD_TOL}
+            bad.update({f"{k} vs f64": v for k, v in errs64.items()
+                        if not v <= GRAD_F64_TOL})
+            if bad:
+                raise AssertionError(f"train_kernel_grad {shape}: {bad}")
+            del plain, f64
+            # the input gradient's own launch: a conv O->C on g, 'same'
+            wf = c3.flipped_weights(w)
+            zeros = w.new_zeros(c)
+            d_variant = c3.variants_for(o, c, ww)[0]
+            # as backward runs it: flip, pack, launch; and the launch alone on
+            # weights packed once
+            dx_ms = cuda_ms(lambda: c3.conv3x3(dy, c3.flipped_weights(w), zeros))
+            dx_kernel_ms = cuda_ms(lambda: c3.conv3x3(dy, wf, zeros))
+            dx_library_ms = cuda_ms(lambda: torch.nn.grad.conv2d_input(
+                x.shape, w, dy, padding=1))
+            dx_plain_ms = cuda_ms(lambda: c3.conv3x3_plain(dy, wf, zeros))
+            leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+
+            def fwd(fn):
+                return fn(*leaves, act=act, residual=r)
+
+            def bwd(fn):
+                return lambda: fwd(fn).backward(dy)
+
+            row = {"phase": "train_kernel_grad", "shape": shape,
+                   "x": [n, c, hh, ww], "o": o,
+                   "variant": c3.variants_for(c, o, ww)[0], "d_x_variant": d_variant,
+                   "launches_forward_backward": launches,
+                   "activation_sides_differing_from_f64": flips,
+                   "rel_err_vs_plain": errs, "rel_err_vs_f64": errs64,
+                   "tol": GRAD_TOL, "f64_tol": GRAD_F64_TOL,
+                   "d_w_one_call_rel_err_vs_f64": dw_one_err64,
+                   "d_w_ms": cuda_ms(lambda: c3.weight_grad(x, w.shape, dy)),
+                   "d_w_one_call_ms": cuda_ms(lambda: torch.nn.grad.conv2d_weight(
+                       x, w.shape, dy, padding=1)),
+                   "forward_ms": cuda_ms(lambda: fwd(c3.conv3x3).detach()),
+                   "d_x_ms": dx_ms, "d_x_kernel_ms": dx_kernel_ms,
+                   "d_x_plain_ms": dx_plain_ms,
+                   "d_x_library_ms": dx_library_ms,
+                   "forward_backward_ms": cuda_ms(bwd(c3.conv3x3)),
+                   "plain_forward_backward_ms": cuda_ms(bwd(c3.conv3x3_plain))}
+            bound = conv_bound(n, o, c, hh, ww, False, d_variant)
+            row.update({"d_x_bound_ms": bound["bound_ms"],
+                        "d_x_bound_by": bound["bound_by"]})
+            if not dx_kernel_ms >= bound["bound_ms"]:
+                raise AssertionError(f"train_kernel_grad {shape}: d_x {dx_kernel_ms} ms "
+                                     f"is under its bound {bound['bound_ms']} ms")
+            emit(row)
+            rows.append(row)
+            del x, w, b, r, dy, y, got, leaves
+            torch.cuda.empty_cache()
+    return rows
+
+
+def group_of(name):
+    """A parameter's top-level module (SpyNet, the MV encoder, a coder)."""
+    return name.split(".")[0]
+
+
+def module_group_of(name):
+    """A parameter's module group: its first two name parts."""
+    return ".".join(name.split(".")[:2])
+
+
+def module_of(name):
+    """The module that owns a parameter (a conv's weight and bias)."""
+    return name.rsplit(".", 1)[0]
+
+
+# output biases of the MV decoders' last layer (2 flow channels x 4 pixel
+# shuffle phases): a sub-pixel flow where the seeded init decodes exactly 0
+MV_OFFSET = (0.37, -0.29, 0.43, -0.21, 0.31, -0.41, 0.23, -0.33)
+F64_GRAD_AGREE = 1e-9  # float64 card against CPU, of the module's largest |grad|
+KERNEL_GRAD_TOL = 1e-2  # kernel on against off, of the module group's largest |grad|
+F32_PRECISION_X = 10.0  # card's median f32 gradient error over the CPU's
+
+
+def small_train_grads(device, dtype, frames, noise, offset, use_kernel=True):
+    """(loss, log, grads) of the small config's GOP-2 train loss from the
+    seeded weights, the MV decoders' output biases moved by `offset`."""
+    from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
+    from learned_pmctf_tpu_torch.training.steps import StageGates, pmctf_gop_loss
+    model = build_pmctf(device, seed=1, **SMALL).to(dtype)
+    for coder in (model.lp_coder, model.hp_coder):
+        coder.dequantModule.use_kernel = use_kernel and dtype == torch.float32
+    if offset is not None:
+        with torch.no_grad():
+            for dec in model.mv_decoder:
+                dec.dec_3[1][0].bias += torch.tensor(offset, dtype=dtype, device=device)
+    loss, log = pmctf_gop_loss(model, [f.to(device, dtype) for f in frames], 10.0,
+                               0.05, StageGates.for_stage(5),
+                               noise=[tuple(t.to(dtype) for t in n) for n in noise])
+    loss.backward()
+    return (float(loss.detach()), {k: float(v) for k, v in log.items()},
+            {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()
+             if p.grad is not None})
+
+
+def _grad_worst(a, b, tol):
+    """(max over parameters of |a - b| / tol(name), name)."""
+    top = (0.0, None)
+    for k in a:
+        err = float((a[k] - b[k]).abs().max())
+        top = max(top, (err / max(tol(k), 1e-300), k), key=lambda t: t[0])
+    return top
+
+
+def _largest(grads, key):
+    out = {}
+    for k, v in grads.items():
+        out[key(k)] = max(out.get(key(k), 0.0), float(v.abs().max()))
+    return out
+
+
+def phase_train_small_reference():
+    """The small config's GOP-2 train loss and gradients on the card and on
+    the CPU, from the same weights and the same noise (drawn on the CPU).
+
+    At the seeded init the decoded motion is exactly 0, so the warp samples
+    at integer coordinates, where bilinear interpolation's derivative in
+    the flow jumps, and the card and the CPU may take either side (their
+    float64 gradients upstream of the motion are reported there, not
+    held). The checks run with the MV decoders' output biases moved by
+    MV_OFFSET, a sub-pixel flow where that derivative is smooth:
+    - float64 (PostProcess on its plain version: the kernel takes f32
+      only): losses within rel 1e-9, every gradient within 1e-9 of its
+      module's largest magnitude;
+    - f32 on the card, PostProcess on the kernel against the same run on
+      its plain version: every gradient within 1e-2 of its module group's
+      largest magnitude (the kernel's 3e-5 moves cancelling sums by a few
+      percent of their own module's largest magnitude);
+    - f32 precision, PostProcess on its plain version: the card's median
+      error against its float64 run, each gradient's relative to its own
+      size, within 10 times the CPU's (a card that lost precision, to
+      TF32 say, would be a hundred times off or more); the losses (kernel on)
+      within rel 1e-4; the f32 gradients of the card (kernel on) against
+      the CPU's are reported: by the triangle inequality the checks above
+      bound them, and a per-gradient bound from both sides' own f32
+      errors would add nothing to them;
+    - PostProcess's conv1/conv3 gradients non-zero on the card."""
+    from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
+    from learned_pmctf_tpu_torch.training.steps import draw_pair_noise
+    luma, _ = synthetic_gop(2, 64, 64, "cpu", seed=3)
+    frames = [torch.cat([f, torch.flip(f, (3,))]) for f in luma]  # batch 2
+    noise = draw_pair_noise(build_pmctf("cpu", seed=1, **SMALL), frames,
+                            torch.Generator().manual_seed(4))
+    f32, f64 = torch.float32, torch.float64
+    init = {dev: small_train_grads(dev, f64, frames, noise, None)
+            for dev in ("cuda", "cpu")}
+    runs = {(dev, dtype, kern): small_train_grads(dev, dtype, frames, noise, MV_OFFSET,
+                                                  use_kernel=kern)
+            for dev, dtype, kern in (("cuda", f32, True), ("cuda", f32, False),
+                                     ("cuda", f64, False), ("cpu", f32, False),
+                                     ("cpu", f64, False))}
+    g_kern, g_card = runs["cuda", f32, True][2], runs["cuda", f32, False][2]
+    g64_card, g_cpu = runs["cuda", f64, False][2], runs["cpu", f32, False][2]
+    g64_cpu = runs["cpu", f64, False][2]
+    if not (set(g_kern) == set(g_card) == set(g64_card) == set(g_cpu) == set(g64_cpu)
+            == set(init["cuda"][2]) == set(init["cpu"][2])):
+        raise AssertionError("train_small_reference: gradients of other parameters")
+    module_max = _largest(g64_cpu, module_of)
+    group_max = _largest(g_cpu, module_group_of)
+    f64_agree = _grad_worst(g64_card, g64_cpu,
+                            lambda k: F64_GRAD_AGREE * module_max[module_of(k)])
+    kernel = _grad_worst(g_kern, g_card,
+                         lambda k: KERNEL_GRAD_TOL * group_max[module_group_of(k)])
+    # reported, not held: the float64 agreement, the kernel check and the
+    # precision check bound it
+    card_cpu = _grad_worst(g_kern, g_cpu, lambda k: group_max[module_group_of(k)])
+
+    def median_rel_err(g, g64):  # of the reached gradients, each of its own size
+        return statistics.median(float((g[k] - g64[k]).abs().max() / g64[k].abs().max())
+                                 for k in g64 if float(g64[k].abs().max()) > 0)
+
+    precision = {"card": median_rel_err(g_card, g64_card),
+                 "cpu": median_rel_err(g_cpu, g64_cpu)}
+    precision["ratio"] = precision["card"] / max(precision["cpu"], 1e-300)
+    top_max = _largest(init["cpu"][2], group_of)
+    init_f64 = {}
+    for k, v in init["cpu"][2].items():
+        d = float((init["cuda"][2][k] - v).abs().max()) / max(top_max[group_of(k)], 1e-300)
+        init_f64[group_of(k)] = max(init_f64.get(group_of(k), 0.0), d)
+    post = {k: float(g_kern[f"hp_coder.dequantModule.{k}.weight"].abs().max())
+            for k in ("conv1", "conv3")}
+    loss = {f"{dev}_{str(dtype)[6:]}" + ("_kernel" if kern else ""): v[0]
+            for (dev, dtype, kern), v in runs.items()}
+    row = {"phase": "train_small_reference", "gop": 2, "batch": 2, "size": [64, 64],
+           "mv_offset": MV_OFFSET, "loss": loss,
+           "log_card": runs["cuda", f32, True][1], "log_cpu": runs["cpu", f32, False][1],
+           "params_with_grad": len(g_card),
+           "f64_card_vs_cpu_over_tol": f64_agree, "f64_tol": F64_GRAD_AGREE,
+           "f32_kernel_vs_plain_over_tol": kernel, "kernel_tol": KERNEL_GRAD_TOL,
+           "f32_card_kernel_vs_cpu_of_group_max": card_cpu,
+           "f32_median_rel_err_vs_f64": precision,
+           "init_loss_f64": {dev: init[dev][0] for dev in init},
+           "init_f64_grad_err_of_group_max_by_group": init_f64,
+           "postprocess_grad_max_card": post}
+    emit(row)
+    l_kern, l_cpu = loss["cuda_float32_kernel"], loss["cpu_float32"]
+    l64_card, l64_cpu = loss["cuda_float64"], loss["cpu_float64"]
+    if not (abs(l_kern - l_cpu) <= 1e-4 * abs(l_cpu)
+            and abs(l64_card - l64_cpu) <= 1e-9 * abs(l64_cpu)):
+        raise AssertionError(f"train_small_reference: losses {loss}")
+    bad = {k: v for k, v in (("f64", f64_agree), ("kernel", kernel))
+           if not v[0] <= 1.0}
+    if not precision["ratio"] <= F32_PRECISION_X:
+        bad["precision"] = precision
+    if bad:
+        raise AssertionError(f"train_small_reference: gradients off: {bad}")
+    if not all(v > 0 for v in post.values()):
+        raise AssertionError(f"train_small_reference: PostProcess gradients {post}")
+
+
+def train_frames(n, batch, hw, seed):
+    """(n, batch, 1, H, W) smooth 8-bit frames moving by (2, 3) px a frame,
+    each sample its own crop, made on the card."""
+    luma, _ = synthetic_gop(n, hw[0] * 2, hw[1] * 2, "cuda", seed=seed)
+    clip = torch.stack(luma)[:, 0, 0]  # (n, 2H, 2W)
+    g = torch.Generator().manual_seed(seed)
+    crops = []
+    for _ in range(batch):
+        top = int(torch.randint(0, hw[0], (1,), generator=g))
+        left = int(torch.randint(0, hw[1], (1,), generator=g))
+        crops.append(clip[:, top:top + hw[0], left:left + hw[1]])
+    return torch.stack(crops, 1)[:, :, None].contiguous()
+
+
+def train_launch_expect(calls, w, recompute=True):
+    """conv3x3 launches by variant of a train step with `calls`
+    PostProcess calls (a GOP step: one a highpass pair, one for the
+    lowpass band): each launches its 15 convs in the forward, again in
+    the recompute under per-pair checkpointing, and once more for each
+    conv's input gradient (a 1->64 conv's is 64->1, a 64->1's is 1->64)."""
+    from learned_pmctf_tpu_torch.ops.conv3x3 import variants_for
+    fwd = 2 if recompute else 1
+    out = {}
+    for (c, o), times in (((1, 64), fwd), ((64, 64), 13 * fwd), ((64, 1), fwd),
+                          ((64, 1), 1), ((64, 64), 13), ((1, 64), 1)):
+        v = variants_for(c, o, w)[0]
+        out[v] = out.get(v, 0) + times * calls
+    return out
+
+
+def grad_norms(model):
+    """Gradient norm of every trainable top-level module group."""
+    norms = {}
+    for k, p in model.named_parameters():
+        if p.requires_grad and p.grad is not None:
+            norms[group_of(k)] = norms.get(group_of(k), 0.0) + float(
+                p.grad.double().pow(2).sum())
+    return {k: v ** 0.5 for k, v in norms.items()}
+
+
+def check_packs_fresh(model, step, frames, noise):
+    """After an optimizer step (the fused AdamW, which bumps no version
+    counter itself) the kernel must run the new weights, not the pack
+    cached before it: one more train step must bump a PostProcess
+    weight's version (the cache key), and the kernel then equals the plain
+    version on the new weights and its cached pack a fresh one."""
+    from learned_pmctf_tpu_torch.ops import conv3x3 as c3
+    o_pad = c3._load().conv3x3_padded_o(64)
+    x = torch.randn(1, 64, 32, 64, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(5))
+
+    def launch_err(w, b):
+        with torch.no_grad():
+            return float((c3.conv3x3(x, w, b) - c3.conv3x3_plain(x, w, b)).abs().max())
+
+    conv = model.hp_coder.dequantModule.resBlocks[0].conv1
+    launch_err(conv.weight, conv.bias)  # caches the pack
+    version = conv.weight._version
+    step(frames, 10.0, 0.05, noise)
+    checks = {"step_bumped_version": conv.weight._version != version,
+              "step_launch_err": launch_err(conv.weight, conv.bias),
+              "step_pack_fresh": torch.equal(
+                  c3.packed_weights(conv.weight, "wgmma", o_pad),
+                  c3.pack_weights(conv.weight.detach(), "wgmma", o_pad))}
+    if not (checks["step_bumped_version"] and checks["step_pack_fresh"]
+            and checks["step_launch_err"] <= KERNEL_TOL):
+        raise AssertionError(f"stale conv3x3 weight packs after a step: {checks}")
+    return checks
+
+
+def timed_train_steps(step, frames, noise, steps, expect):
+    """A warm-up step, whose conv3x3 launches are counted against
+    `expect`, then `steps` timed steps (host clock, synchronized); the
+    loss of every step must be finite."""
+    from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3, packed_weights
+
+    def run():
+        log = step(frames, 10.0, 0.05, noise)
+        torch.cuda.synchronize()
+        if not torch.isfinite(log["rd_loss"]):
+            raise AssertionError(f"train step: non-finite loss {log}")
+        return log
+
+    conv3x3.launches, conv3x3.by_variant = 0, {}
+    packs = packed_weights.packs
+    run()
+    launches, by_variant = conv3x3.launches, dict(conv3x3.by_variant)
+    packs = packed_weights.packs - packs
+    if by_variant != expect:
+        raise AssertionError(f"train step: conv3x3 launches by variant {by_variant}, "
+                             f"expected {expect}")
+    torch.cuda.reset_peak_memory_stats()
+    times, log = [], None
+    for _ in range(steps):
+        t = time.perf_counter()
+        log = run()
+        times.append((time.perf_counter() - t) * 1e3)
+    return {"step_ms": statistics.median(times), "step_ms_min": min(times),
+            "step_ms_max": max(times), "step_ms_runs": times,
+            "conv3x3_launches": launches, "conv3x3_launches_by_variant": by_variant,
+            "weight_packs": packs,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "log": {k: float(v) for k, v in log.items()}}
+
+
+def weight_grad_ab(step, frames, noise, rounds=4):
+    """Host time of a train step (ending in a synchronize) with
+    PostProcess's weight gradients by ``weight_grad`` (one grouped
+    conv2d_weight call, a sample a group, the parts summed) and by one
+    plain conv2d_weight call over the batch, the two alternated step by
+    step."""
+    from learned_pmctf_tpu_torch.ops import conv3x3 as c3
+    grouped = c3.weight_grad
+
+    def one_call(x, w_shape, g):
+        return torch.nn.grad.conv2d_weight(x, w_shape, g, padding=1)
+
+    times = {"one_call": [], "weight_grad": []}
+    try:
+        for _ in range(rounds):
+            for mode, fn in (("one_call", one_call), ("weight_grad", grouped)):
+                c3.weight_grad = fn
+                t = time.perf_counter()
+                step(frames, 10.0, 0.05, noise)
+                torch.cuda.synchronize()
+                times[mode].append((time.perf_counter() - t) * 1e3)
+    finally:
+        c3.weight_grad = grouped
+    out = {f"{k}_step_ms": statistics.median(v) for k, v in times.items()}
+    out["runs"] = times
+    out["weight_grad_cost_ms"] = out["weight_grad_step_ms"] - out["one_call_step_ms"]
+    return out
+
+
+def phase_train_pmctf(smi):
+    """Full-width pMCTF-L (train_pmctf.py's model: num_me_stages 2) at the
+    trainer's defaults (batch 8, 128x128 luma, exact warp), seeded:
+    curriculum stage 6 (GOP-4, part All, quant_stage on; a warm-up whose
+    launches are counted, 5 timed steps, the weight-gradient A/B) and
+    stage 8 (GOP-16; a counted warm-up, 3 timed steps), then a profile of
+    one GOP-4 step."""
+    from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
+    from learned_pmctf_tpu_torch.training.curriculum import PART_PREDICATES
+    from learned_pmctf_tpu_torch.training.optim import make_optimizer, trainable_mask
+    from learned_pmctf_tpu_torch.training.steps import StageGates, make_pmctf_train_step
+    model = build_pmctf("cuda", seed=0, num_me_stages=2, quant_stage=False).train()
+    model.quant_stage = True  # switched on from stage 6
+    opt = make_optimizer(model, 1e-5, weight_decay=0.0, clip_norm=5.0,
+                         trainable=trainable_mask(model, PART_PREDICATES["All"]))
+    noise = torch.Generator(device="cuda").manual_seed(7)
+    w = TRAIN_PATCH[1]
+    row = {"phase": "train_pmctf", "model": "pMCTF-L full width (seeded random weights)",
+           "batch": TRAIN_BATCH, "patch": list(TRAIN_PATCH), "warp_mode": "exact",
+           "parameters": sum(p.numel() for p in model.parameters())}
+    step4 = make_pmctf_train_step(model, opt, 4, StageGates.for_stage(5))
+    frames4 = train_frames(4, TRAIN_BATCH, TRAIN_PATCH, seed=11)
+    gop4 = timed_train_steps(step4, frames4, noise, 5, train_launch_expect(4, w))
+    gop4["frames_per_s"] = TRAIN_BATCH * 4 / (gop4["step_ms"] / 1e3)
+    # a step packs each PostProcess weight of both coders once after the
+    # optimizer changed it (13 wgmma, 1 direct a coder) and the flipped
+    # weights of every input gradient (13 wgmma, 1 direct a call; the
+    # 64->1 head reads its weights unpacked)
+    gop4["weight_packs_reckoned"] = 14 * (2 + 4)
+    gop4["grad_norms"] = norms = grad_norms(model)
+    if not all(0 < v < float("inf") for v in norms.values()):
+        raise AssertionError(f"train_pmctf: gradient norms {norms}")
+    gop4["packs"] = check_packs_fresh(model, step4, frames4, noise)
+    gop4["weight_grad_ab"] = weight_grad_ab(step4, frames4, noise)
+    row["gop4_stage6"] = gop4
+    step16 = make_pmctf_train_step(model, opt, 16, StageGates.for_stage(7))
+    frames16 = train_frames(16, TRAIN_BATCH, TRAIN_PATCH, seed=12)
+    gop16 = timed_train_steps(step16, frames16, noise, 3, train_launch_expect(16, w))
+    gop16["frames_per_s"] = TRAIN_BATCH * 16 / (gop16["step_ms"] / 1e3)
+    gop16["weight_packs_reckoned"] = 14 * (2 + 16)
+    row["gop16_stage8"] = gop16
+    del frames16
+    torch.cuda.empty_cache()
+    row["profile_gop4"] = profile_train_step(model, opt, frames4, noise)
+    emit({**row, "card": smi})
+    return gop4["conv3x3_launches_by_variant"]
+
+
+def profile_train_step(model, opt, frames, noise):
+    """Device time of one GOP-4 train step: forward, backward (the
+    recompute included), optimizer, each ended by a synchronize so that
+    a kernel's device time falls in its part's window; the recompute is
+    the device time of the module ranges that run inside backward; the
+    forward and the recompute split by layer as the estimate profile
+    splits them (conv3x3 launches through ctypes belong to no range: their
+    time is reported whole); the device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from learned_pmctf_tpu_torch.training.steps import StageGates, pmctf_gop_loss
+    labels = _layer_labels(model)
+    ranges = {}
+
+    def pre(m, args):
+        ranges[m] = record_function(labels[m])
+        ranges[m].__enter__()
+
+    def post(m, args, out):
+        ranges.pop(m).__exit__(None, None, None)
+
+    hooks = [h for m in labels for h in (m.register_forward_pre_hook(pre),
+                                         m.register_forward_hook(post))]
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            opt.zero_grad()
+            with record_function("train:forward"):
+                loss, _ = pmctf_gop_loss(model, frames, 10.0, 0.05,
+                                         StageGates.for_stage(5), noise=noise)
+                torch.cuda.synchronize()
+            with record_function("train:backward"):
+                loss.backward()
+                torch.cuda.synchronize()
+            with record_function("train:optimizer"):
+                opt.step()
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        for h in hooks:
+            h.remove()
+    events = prof.events()
+    spans = {e.name.split(":")[1]: e.time_range for e in events
+             if e.device_type == DeviceType.CPU and e.name.startswith("train:")}
+    part_ms = dict.fromkeys(spans, 0.0)
+    for e in events:
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            for part, span in spans.items():
+                if span.start <= e.time_range.start < span.end:
+                    part_ms[part] += e.time_range.elapsed_us() / 1e3
+    names = set(labels.values())
+    by_layer = {"forward": dict.fromkeys(sorted(names), 0.0),
+                "recompute": dict.fromkeys(sorted(names), 0.0)}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name in names:
+            inside = spans["backward"].start <= e.time_range.start < spans["backward"].end
+            by_layer["recompute" if inside else "forward"][e.name] += (
+                e.device_time_total / 1e3)
+    kernels, busy_ms = device_kernels(prof)
+    conv_ms = sum(e.self_device_time_total for e in kernels
+                  if "conv3x3" in e.key and "_kernel" in e.key) / 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
+    recompute_ms = sum(by_layer["recompute"].values())
+    return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "device_ms_by_part": part_ms,
+            "recompute_device_ms": recompute_ms,
+            "backward_without_recompute_device_ms": part_ms.get("backward", 0.0)
+            - recompute_ms,
+            "conv3x3_kernels_ms": conv_ms, "device_ms_by_layer": by_layer,
+            "top_device_ops_ms": {e.key[:80]: e.self_device_time_total / 1e3
+                                  for e in top[:8]}}
+
+
+def phase_train_pwave(smi):
+    """Full-width pWave (features 112, four-step LL) at train_pwave.py's
+    defaults (batch 16, 256x256; AdamW, weight decay 0.05, clip 1): a
+    warm-up whose launches are counted (15 forward, 15 for the input
+    gradients: no recomputation), 3 timed steps, peak memory."""
+    from learned_pmctf_tpu_torch.models.layers import init_params
+    from learned_pmctf_tpu_torch.models.pwave import PWave
+    from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3
+    from learned_pmctf_tpu_torch.training.optim import make_optimizer
+    from learned_pmctf_tpu_torch.training.steps import make_pwave_train_step
+    model = init_params(PWave(), torch.Generator().manual_seed(0)).cuda().train()
+    step = make_pwave_train_step(model, make_optimizer(model, 1e-4, 0.05, 1.0))
+    x = train_frames(1, PWAVE_BATCH, PWAVE_PATCH, seed=13)[0]
+    w = PWAVE_PATCH[1]
+
+    def run():
+        m = step(x, 10.0, 0.05)
+        torch.cuda.synchronize()
+        if not torch.isfinite(m["loss"]):
+            raise AssertionError(f"train_pwave: non-finite loss {m}")
+        return m
+
+    conv3x3.launches, conv3x3.by_variant = 0, {}
+    run()
+    expect = train_launch_expect(1, w, recompute=False)
+    by_variant = dict(conv3x3.by_variant)
+    post = {k: float(getattr(model.dequantModule, k).weight.grad.abs().max())
+            for k in ("conv1", "conv3")}
+    if by_variant != expect or not all(v > 0 for v in post.values()):
+        raise AssertionError(f"train_pwave: launches {by_variant}, expected "
+                             f"{expect}; PostProcess gradients {post}")
+    torch.cuda.reset_peak_memory_stats()
+    times, m = [], None
+    for _ in range(3):
+        t = time.perf_counter()
+        m = run()
+        times.append((time.perf_counter() - t) * 1e3)
+    step_ms = statistics.median(times)
+    emit({"phase": "train_pwave", "model": "pWave full width (seeded random weights)",
+          "batch": PWAVE_BATCH, "patch": list(PWAVE_PATCH),
+          "parameters": sum(p.numel() for p in model.parameters()),
+          "step_ms": step_ms, "step_ms_min": min(times), "step_ms_max": max(times),
+          "step_ms_runs": times, "images_per_s": PWAVE_BATCH / (step_ms / 1e3),
+          "conv3x3_launches": 30, "conv3x3_launches_by_variant": by_variant,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "postprocess_grad_max": post,
+          "metrics": {k: float(v) for k, v in m.items()}, "card": smi})
+    del model, x
+    torch.cuda.empty_cache()
+
+
+def write_png_dataset(root, sequences=4, frames=32, h=96, w=112, seed=0):
+    """A Vimeo-layout folder of synthetic RGB PNGs (PIL), textured and
+    moving by (1, 2) px a frame, with sep_trainlist.txt/sep_testlist.txt.
+    32 frames a clip, as vimeo-32's: the GOP-16 stage draws frame
+    intervals of 1 or 2."""
+    import numpy as np
+    from PIL import Image
+    g = np.random.default_rng(seed)
+    names = []
+    for s in range(sequences):
+        name = f"00001/{s + 1:04d}"
+        d = os.path.join(root, "sequences", name)
+        os.makedirs(d)
+        base = g.integers(0, 256, (h // 4 + frames, w // 4 + frames, 3))
+        base = np.kron(base, np.ones((4, 4, 1)))  # some structure to track
+        for t in range(frames):
+            Image.fromarray(base[t:t + h, 2 * t:2 * t + w].astype(np.uint8)).save(
+                os.path.join(d, f"im{t + 1}.png"))
+        names.append(name)
+    for f in ("sep_trainlist.txt", "sep_testlist.txt"):
+        with open(os.path.join(root, f), "w") as fh:
+            fh.write("\n".join(names) + "\n")
+
+
+def run_cli(module, args, cwd, timeout):
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    wall_s = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout, wall_s
+
+
+def logged(text, key):
+    vals = [float(v) for v in re.findall(rf"{key} (\S+)", text)]
+    if not vals or not all(v == v and abs(v) != float("inf") for v in vals):
+        raise AssertionError(f"no finite {key!r} values in the log:\n{text[-3000:]}")
+    return vals
+
+
+def phase_train_cli(smi):
+    """The training CLIs as a user runs them, each in its own process, on
+    a synthetic PNG dataset: train_pmctf through all 8 stages of
+    configs/train_mctf_smoke.json (2 steps an epoch, batch 2, 64x64,
+    exact warp), a resume from its stage-7 checkpoint, and train_pwave for
+    2 steps."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        data = os.path.join(d, "vimeo")
+        write_png_dataset(data)
+        common = ["-d", data, "--batch-size", "2", "--patchsize", "64", "64",
+                  "--steps_per_epoch", "2", "--log_every", "1", "--warp_mode",
+                  "exact", "--num-workers", "2",
+                  "--config", os.path.join(root, "configs", "train_mctf_smoke.json")]
+        mod = "learned_pmctf_tpu_torch.cli.train_pmctf"
+        out, wall = run_cli(mod, common, d, 600)
+        exp = os.path.join(d, "experiments", "pmctf_BS2")
+        ckpts = sorted(f for f in os.listdir(exp) if f.startswith("state_epoch"))
+        if ckpts != [f"state_epoch{i}" for i in range(8)]:
+            raise AssertionError(f"train_pmctf checkpoints {ckpts}")
+        for want in ("STAGE 8: part=All frames=16", "cloning ME stage 0 -> 1+",
+                     "ENABLE TEMPORAL LAYER ADAPTIVE QUALITY SCALING"):
+            if want not in out:
+                raise AssertionError(f"train_pmctf log lacks {want!r}")
+        with open(os.path.join(exp, "state_epoch7", "meta.json")) as f:
+            meta = json.load(f)
+        rd = logged(out, " rd")
+        out2, wall2 = run_cli(mod, common + ["--checkpoint",
+                                             os.path.join(exp, "state_epoch6"),
+                                             "--resume"], d, 300)
+        if "resume at epoch 7, stage 8" not in out2:
+            raise AssertionError(f"resume log:\n{out2[-2000:]}")
+        rd2 = logged(out2, " rd")
+        out3, wall3 = run_cli("learned_pmctf_tpu_torch.cli.train_pwave",
+                              ["-d", data, "--epochs", "1", "--batch-size", "2",
+                               "--test-batch-size", "2", "--patch-size", "64", "64",
+                               "--steps_per_epoch", "2", "-n", "2",
+                               "--experiments_root", os.path.join(d, "pw")], d, 300)
+        loss = logged(out3, r"\] loss")
+        if not os.path.isdir(os.path.join(d, "pw", "pwave_BS2_LR0.0001",
+                                          "checkpoint_best_loss")):
+            raise AssertionError("train_pwave wrote no checkpoint")
+    emit({"phase": "train_cli", "train_pmctf_s": wall, "resume_s": wall2,
+          "train_pwave_s": wall3, "rd_losses": rd, "resume_rd_losses": rd2,
+          "pwave_losses": loss, "last_meta": meta, "checkpoints": ckpts,
+          "card": smi})
+
+
 # variant -> its source and the kernel-phase shape that stands for it
 VARIANT_ROWS = {
     "wgmma_3xtf32": ("conv3x3_wgmma.cu", "luma 64->64 leaky_relu"),
@@ -924,11 +1635,18 @@ def main():
     phase_stream_small_reference("ar")
     ar_by_variant, ar_stream_by_variant = phase_ar_slice(smi)
     phase_cli(smi)
+    phase_train_kernel_grad(smi)
+    phase_train_small_reference()
+    train_by_variant = phase_train_pmctf(smi)
+    phase_train_pwave(smi)
+    phase_train_cli(smi)
     # launches by path: the estimate GOP-4 ("launches"), the stream GOP-4,
-    # and both again with the AR LL coder
+    # both again with the AR LL coder, and a GOP-4 train step (forward,
+    # recompute and input gradients)
     launches = {"launches": by_variant, "stream_launches": stream_by_variant,
                 "ar_launches": ar_by_variant,
-                "ar_stream_launches": ar_stream_by_variant}
+                "ar_stream_launches": ar_stream_by_variant,
+                "train_launches": train_by_variant}
     entries = kernel_entries(rows, launches)
     on_path = [e for e in entries if e["launches"] > 0]
     if {e["name"].split("/")[1] for e in on_path} != set(by_variant):

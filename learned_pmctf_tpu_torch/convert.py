@@ -44,6 +44,7 @@ class _Bridge:
         self.flat = flat
         self.used = set()
         self.out: Dict[str, torch.Tensor] = {}
+        self.source: Dict[str, str] = {}  # port key -> JAX path
 
     def has(self, j: str) -> bool:
         return j in self.flat
@@ -51,6 +52,7 @@ class _Bridge:
     def leaf(self, j: str, t: str, index=None):
         v = self.flat[j]
         self.used.add(j)
+        self.source[t] = j
         if index is not None:
             v = v[index]
         self.out[t] = torch.from_numpy(np.array(v, np.float32, order="C"))
@@ -230,18 +232,42 @@ class _Bridge:
             self.leaf(f"{tj}/scale_u", f"{tt}.scale_u")
 
 
-def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX PMCTF params (nested dict of arrays) -> port PMCTF state dict."""
+def _bridged(tree: Mapping, pwave: bool) -> _Bridge:
     if "params" in tree and len(tree) == 1:
         tree = tree["params"]
-    flat = _flatten(tree)
+    # a PWave tree goes through the PMCTF coders' map under one prefix
+    flat = _flatten({"pwave": tree} if pwave else tree)
     bridge = _Bridge(flat)
-    bridge.pmctf()
+    if pwave:
+        bridge.pwave("pwave", "pwave")
+    else:
+        bridge.pmctf()
     unused = sorted(set(flat) - bridge.used)
     if unused:
         raise ValueError(f"{len(unused)} JAX leaves have no home in the port: "
                          f"{unused[:10]}")
-    return bridge.out
+    if pwave:
+        bridge.out = {k[len("pwave."):]: v for k, v in bridge.out.items()}
+        bridge.source = {k[len("pwave."):]: v[len("pwave/"):]
+                         for k, v in bridge.source.items()}
+    return bridge
+
+
+def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX PMCTF params (nested dict of arrays) -> port PMCTF state dict."""
+    return _bridged(tree, pwave=False).out
+
+
+def pwave_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX PWave params -> port PWave state dict."""
+    return _bridged(tree, pwave=True).out
+
+
+def jax_paths(tree: Mapping, pwave: bool = False) -> Dict[str, str]:
+    """Port state-dict key -> the '/'-joined JAX path it is read from (a
+    per-ME-stage scale of the port reads one row of its JAX leaf). The
+    buffers the port makes itself (AR masks) have none."""
+    return _bridged(tree, pwave).source
 
 
 # Parameters of the port that the reference model does not save: the
@@ -305,3 +331,37 @@ def load_reference_state_dict(path_or_dict, model):
             raise ValueError(f"{k} is not the causal mask of the port's model")
     model.load_state_dict({**own, **sd}, strict=True)
     return model
+
+
+def load_reference_spynet(path_or_dict, spynet):
+    """Load a reference SpyNet checkpoint into the port's MESpynet
+    `spynet` (the trainer's ``--spynet_path``), as the JAX package's
+    ``load_spynet_torch(luma_mode=True)`` converts one: a "state_dict" or
+    "net" entry unwrapped, "module." stripped, the sniklaus names
+    ``moduleBasic.{L}.moduleBasic.{2j}.*`` mapped to ``conv{j+1}``, keys
+    outside ``moduleBasic.{L}.conv{j}.*`` dropped, and an 8-input conv1's
+    RGB slices summed to the port's 4 luma inputs. Loads strictly.
+    Returns `spynet`."""
+    sd = path_or_dict
+    if not isinstance(sd, Mapping):
+        sd = torch.load(sd, map_location="cpu", weights_only=True)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    if "net" in sd:
+        sd = sd["net"]
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        for j in range(5):
+            k = k.replace(f".moduleBasic.{2 * j}.", f".conv{j + 1}.")
+        parts = k.split(".")
+        if len(parts) != 4 or parts[0] != "moduleBasic":
+            continue
+        w = torch.as_tensor(v).detach().cpu().float()
+        if parts[2] == "conv1" and parts[3] == "weight" and w.shape[1] == 8:
+            w = torch.cat([w[:, 0:3].sum(1, keepdim=True),
+                           w[:, 3:6].sum(1, keepdim=True), w[:, 6:8]], dim=1)
+        out[k] = w
+    spynet.load_state_dict(out, strict=True)
+    return spynet

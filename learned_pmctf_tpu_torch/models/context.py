@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.masks import checkerboard_masks
-from ..ops.quant import ste_round
+from ..ops.quant import quant_ste, ste_round
 from ..ops.resample import nearest_upsample
 from .layers import (Conv2d, ContextResidual, DepthConvBlock, MaskedConv2d,
                      leaky_relu)
@@ -147,15 +147,16 @@ class ContextFusionSubband(nn.Module):
         return y.float()
 
 
-def process_with_mask(y, scales, means, mask, lossy: bool = True):
-    """Quantize the masked positions around their predicted means
-    (estimate path: hard rounding)."""
+def process_with_mask(y, scales, means, mask, lossy: bool = True,
+                      training: bool = False):
+    """Quantize the masked positions around their predicted means: hard
+    rounding on the estimate path, straight-through rounding in training."""
     if not lossy:
         means = ste_round(means)
     scales_hat = scales * mask
     means_hat = means * mask
     y_res = (y - means_hat) * mask
-    y_q = torch.round(y_res)
+    y_q = quant_ste(y_res, training)
     y_hat = y_q + means_hat
     return y_res, y_q, y_hat, scales_hat
 
@@ -213,7 +214,8 @@ class ContextFusionFourStep(nn.Module):
         scales, means = params.chunk(2, dim=1)
         return scales, means
 
-    def forward(self, x, context=None, prev_subband=None):
+    def forward(self, x, context=None, prev_subband=None,
+                training: bool = False):
         """Returns (x_res, x_q, x_hat, scales_hat), summed over the passes."""
         ctx_feat, scales, means = self.hier_params(context, prev_subband, like=x)
         _, _, h, w = x.shape
@@ -222,7 +224,7 @@ class ContextFusionFourStep(nn.Module):
         x_hat_so_far = torch.zeros_like(x)
         for step in range(4):
             r, q, xh, s = process_with_mask(x, scales, means, masks[step],
-                                            self.lossy)
+                                            self.lossy, training)
             x_res = r if x_res is None else x_res + r
             x_q = q if x_q is None else x_q + q
             s_hat = s if s_hat is None else s_hat + s

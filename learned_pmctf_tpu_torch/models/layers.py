@@ -46,8 +46,11 @@ class Conv2d(nn.Conv2d):
             padding = ((kh - 1) // 2, (kw - 1) // 2)
         super().__init__(in_ch, out_ch, (kh, kw), stride=stride,
                          padding=padding, groups=groups, bias=bias)
+        # nn.Conv2d.__init__ has drawn the weights through reset_parameters
+        # below already; only fixed taps need a second pass
         self.init_taps = init_taps
-        self.reset_parameters()
+        if init_taps is not None:
+            self.reset_parameters()
 
     def reset_parameters(self, generator=None):
         taps = getattr(self, "init_taps", None)

@@ -13,7 +13,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.masks import checkerboard_masks
-from ..ops.quant import lower_bound
+from ..ops.quant import lower_bound, quant_ste
 from .layers import (Conv2d, DepthConvBlock, DepthConvBlock4,
                      ResidualBlockUpsample, ResidualBlockWithStride, SubpelConv)
 
@@ -89,18 +89,19 @@ def separate_prior_enc_dec(params):
     return 1.0 / quant_step, quant_step, scales, means
 
 
-def _mask_process(y, scales, means, mask):
+def _mask_process(y, scales, means, mask, training):
     scales_hat = scales * mask
     means_hat = means * mask
     y_res = (y - means_hat) * mask
-    y_q = torch.round(y_res)
+    y_q = quant_ste(y_res, training)
     return y_res, y_q, y_q + means_hat, scales_hat
 
 
 def four_part_prior_forward(y, common_params, adaptors: Sequence[Callable],
-                            spatial_prior: Callable):
-    """Estimation forward of the quad prior over 16 groups (4 channel
-    quarters x 4 checkerboard phases), 4 passes.
+                            spatial_prior: Callable, training: bool = False):
+    """Estimation (hard rounding) or training (straight-through rounding)
+    forward of the quad prior over 16 groups (4 channel quarters x 4
+    checkerboard phases), 4 passes.
 
     adaptors: 3 callables mapping cat(y_hat_so_far, common) to the spatial
     prior's input; spatial_prior maps that to 8 chunks (scales x4, means x4).
@@ -123,7 +124,7 @@ def four_part_prior_forward(y, common_params, adaptors: Sequence[Callable],
         for i in range(4):
             m = masks[MASK_SCHEDULE[step][i]]
             y_res, y_q, y_hat, s_hat = _mask_process(
-                y_quarters[i], scales_q[i], means_q[i], m)
+                y_quarters[i], scales_q[i], means_q[i], m, training)
             acc(res_acc, i, y_res)
             acc(q_acc, i, y_q)
             acc(hat_acc, i, y_hat)

@@ -1,13 +1,16 @@
 """pMCTF-L video coder.
 
 Counterpart of learned_pmctf_tpu/models/pmctf.py with
-``warp_mode="exact"``, ``spynet_luma=True``, f32 and either LL coder
+``spynet_luma=True``, f32, either warp (``warp_mode="exact"``, the
+reference's, or the opt-in separable ``"fast"``) and either LL coder
 (``ll_mode="fourstep"`` or the reference's ``"ar"``, for both pWave
 coders): two pWave coders for the temporal low/highpass bands, SpyNet
 motion, the MV autoencoder with its four-part prior, learned temporal
 lifting and per-stage highpass quality scaling. The DPB is an explicit
-dict. ``forward_one_stage`` is the estimate path; the ``mv_*`` methods
-are the sub-graphs of the bitstream codec (codec/video_codec.py).
+dict. ``forward_one_stage`` is the estimate path and, with
+``training=True``, one pair of the training step
+(training/steps.py); the ``mv_*`` methods are the sub-graphs of the
+bitstream codec (codec/video_codec.py).
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import torch.nn as nn
 from ..entropy.bit_estimator import BitEstimator
 from ..entropy.distributions import laplace_bits
 from ..ops.resample import bilinear_downsample, bilinear_upsample
-from ..ops.warp import flow_warp
+from ..ops.quant import add_uniform_noise, quant_ste, ste_round
+from ..ops.warp import PMCTF_MAX_DISP, flow_warp, flow_warp_fast
 from ..runtime import disable_tf32, resolve_device
 from .layers import Conv2d, DepthConvBlock, init_params
 from .mv_coder import (HyperDecoder, HyperEncoder, MvDec, MvEnc,
@@ -40,21 +44,25 @@ class PMCTF(nn.Module):
                  quant_stage: bool = True, channel_mv: int = 64,
                  channel_n: int = 64, features: int = 112,
                  ar_features: int = 128, spynet_levels: int = 6,
-                 ll_mode: str = "fourstep"):
+                 ll_mode: str = "fourstep", warp_mode: str = "exact"):
         super().__init__()
+        if warp_mode not in ("exact", "fast"):
+            raise ValueError(f"unknown warp_mode {warp_mode!r}")
         self.ll_mode = ll_mode
+        self.warp_mode = warp_mode
         self.dynamic_range = float(2 ** bitdepth - 1)
         self.lossy = lossy
         self.num_me_stages = n = num_me_stages
         self.quant_stage = quant_stage
         self.channel_mv = channel_mv
+        self.channel_n = channel_n
         c_mv, c_n = channel_mv, channel_n
 
         self.lp_coder = PWave(bitdepth, decomp_levels, lossy, features,
                               ar_features, ll_mode)
         self.hp_coder = PWave(bitdepth, decomp_levels, lossy, features,
                               ar_features, ll_mode)
-        self.optic_flow = MESpynet(spynet_levels)
+        self.optic_flow = MESpynet(spynet_levels, warp_mode == "fast")
 
         def per_stage(make):
             return nn.ModuleList(make() for _ in range(n))
@@ -124,32 +132,57 @@ class PMCTF(nn.Module):
     # ---- motion ----------------------------------------------------------
 
     def compute_and_code_motion(self, ref_frame, cur_frame, q_index, dpb,
-                                stage_idx: int = 0, me_downsample: int = 1):
-        """Estimate, encode and decode motion (estimate path, no noise)."""
+                                stage_idx: int = 0, me_downsample: int = 1,
+                                training: bool = False, noise=None):
+        """Estimate, encode and decode motion.
+
+        Estimate path: hard rounding, the bits of the batch summed. With
+        ``training``: straight-through rounding and the batch's mean of
+        each sample's bits per pixel; ``noise`` = (n_y, n_z), uniform
+        noise shaped as ``mv_noise_shapes`` gives, which then replaces
+        the rounding in the two rate terms (no gradient flows into it)."""
         me_num = self.me_index(stage_idx)
-        mv_y, mv_z_hat = self.mv_latent_planes(ref_frame, cur_frame, dpb,
-                                               me_num, q_index, me_downsample)
+        mv_y, mv_z = self._mv_latents(ref_frame, cur_frame, dpb, me_num,
+                                      q_index, me_downsample)
+        mv_z_hat = quant_ste(mv_z, training)
         mv_params = self.mv_prior_param_decoder(mv_z_hat, dpb, me_num)
-        _, mv_y_q, mv_y_hat, mv_scales_hat = four_part_prior_forward(
+        mv_y_res, mv_y_q, mv_y_hat, mv_scales_hat = four_part_prior_forward(
             mv_y, mv_params, self._adaptors(me_num),
-            self.mv_y_spatial_prior[me_num])
+            self.mv_y_spatial_prior[me_num], training=training)
         mv_hat, mv_feature = self.mv_decode_tail(mv_y_hat, me_num, q_index,
                                                  me_downsample)
 
-        bits_mv_y = laplace_bits(mv_y_q, mv_scales_hat)
-        bits_mv_z = self.mv_bit_est[me_num].get_z_bits(mv_z_hat)
+        if training and noise is not None:
+            mv_y_for_bit = add_uniform_noise(mv_y_res, noise[0])
+            mv_z_for_bit = add_uniform_noise(mv_z, noise[1])
+        else:
+            mv_y_for_bit, mv_z_for_bit = mv_y_q, mv_z_hat
+        bits_mv_y = laplace_bits(mv_y_for_bit, mv_scales_hat)
+        bits_mv_z = self.mv_bit_est[me_num].get_z_bits(mv_z_for_bit)
         pixel_num = ref_frame.shape[2] * ref_frame.shape[3]
-        bpp_mv_y = (bits_mv_y.sum(dim=(1, 2, 3)) / pixel_num).sum()
-        bpp_mv_z = (bits_mv_z.sum(dim=(1, 2, 3)) / pixel_num).sum()
+        bpp_mv_y = bits_mv_y.sum(dim=(1, 2, 3)) / pixel_num
+        bpp_mv_z = bits_mv_z.sum(dim=(1, 2, 3)) / pixel_num
+        if training:
+            bpp_mv_y, bpp_mv_z = bpp_mv_y.mean(), bpp_mv_z.mean()
+        else:
+            bpp_mv_y, bpp_mv_z = bpp_mv_y.sum(), bpp_mv_z.sum()
         ref_mv = {"mv_feature": mv_feature, "mv_y_hat": mv_y_hat}
         return mv_hat, ref_mv, bpp_mv_y, bpp_mv_z
 
-    # ---- sub-graphs of the bitstream codec -------------------------------
+    def mv_noise_shapes(self, batch: int, h: int, w: int):
+        """Shapes of the training noise (n_y, n_z) for a (batch, 1, h, w)
+        pair: the MV latent is h, w halved four times (rounding up), its
+        hyper-latent two times more."""
+        def down(n, times):
+            for _ in range(times):
+                n = (n + 1) // 2
+            return n
+        return ((batch, self.channel_mv, down(h, 4), down(w, 4)),
+                (batch, self.channel_n, down(h, 6), down(w, 6)))
 
-    def mv_latent_planes(self, ref_y, cur_y, dpb, stage_idx: int, q_index,
-                         me_downsample: int = 1):
-        """(mv_y, mv_z_hat): the latents only the encoder computes."""
-        me_num = self.me_index(stage_idx)
+    def _mv_latents(self, ref_y, cur_y, dpb, me_num: int, q_index,
+                    me_downsample: int = 1):
+        """(mv_y, mv_z): the MV latent and its hyper-latent, unrounded."""
         mv_y_q_enc, _ = self.get_mv_y_q(q_index, me_num)
         mv_cur = cur_y / self.dynamic_range
         mv_ref = ref_y / self.dynamic_range
@@ -158,7 +191,17 @@ class PMCTF(nn.Module):
             mv_ref = bilinear_downsample(mv_ref, me_downsample)
         est_mv = self.optic_flow(mv_cur, mv_ref)
         mv_y = self.mv_encoder[me_num](est_mv, dpb.get("mv_feature"), mv_y_q_enc)
-        return mv_y, torch.round(self.mv_hyper_prior_encoder[me_num](mv_y))
+        return mv_y, self.mv_hyper_prior_encoder[me_num](mv_y)
+
+    # ---- sub-graphs of the bitstream codec -------------------------------
+
+    def mv_latent_planes(self, ref_y, cur_y, dpb, stage_idx: int, q_index,
+                         me_downsample: int = 1):
+        """(mv_y, mv_z_hat): the latents only the encoder computes."""
+        mv_y, mv_z = self._mv_latents(ref_y, cur_y, dpb,
+                                      self.me_index(stage_idx), q_index,
+                                      me_downsample)
+        return mv_y, torch.round(mv_z)
 
     def mv_prior_params(self, mv_z_hat, dpb, stage_idx: int):
         return self.mv_prior_param_decoder(mv_z_hat, dpb, self.me_index(stage_idx))
@@ -200,18 +243,23 @@ class PMCTF(nn.Module):
             mv_hat = mv_hat.repeat(batch // mv_hat.shape[0], 1, 1, 1)
         return mv_hat
 
+    def _warp(self, x, mv):
+        if self.warp_mode == "fast":
+            return flow_warp_fast(x, mv, PMCTF_MAX_DISP)
+        return flow_warp(x, mv)
+
     def forward_mctf(self, ref_frame, cur_frame, mv_hat, stage_idx: int = 0):
         """H_t = cur - P(warp(ref, mv)); L_t = ref + U(warp(H_t, -mv))."""
         tf = self.temporal_filtering[self.me_index(stage_idx)]
         mv_hat = self._tile_mv(mv_hat, ref_frame.shape[0])
-        pred = flow_warp(ref_frame, mv_hat)
+        pred = self._warp(ref_frame, mv_hat)
         if not self.lossy:
-            pred = torch.round(pred)
+            pred = ste_round(pred)
         pred = tf.predict_filter(pred)
         h_t = cur_frame - pred
-        inv_pred = flow_warp(h_t, -mv_hat)
+        inv_pred = self._warp(h_t, -mv_hat)
         if not self.lossy:
-            inv_pred = torch.round(inv_pred)
+            inv_pred = ste_round(inv_pred)
         inv_pred = tf.update_filter(inv_pred)
         l_t = ref_frame + inv_pred
         return l_t, h_t, pred, inv_pred
@@ -223,13 +271,13 @@ class PMCTF(nn.Module):
         if downscale:
             mv_hat = bilinear_downsample(mv_hat) / 2.0
         mv_hat = self._tile_mv(mv_hat, l_t.shape[0])
-        inv_pred = flow_warp(h_t, -mv_hat)
+        inv_pred = self._warp(h_t, -mv_hat)
         if not self.lossy:
-            inv_pred = torch.round(inv_pred)
+            inv_pred = ste_round(inv_pred)
         ref_frame = l_t - tf.update_filter(inv_pred)
-        pred = flow_warp(ref_frame, mv_hat)
+        pred = self._warp(ref_frame, mv_hat)
         if not self.lossy:
-            pred = torch.round(pred)
+            pred = ste_round(pred)
         cur_frame = h_t + tf.predict_filter(pred)
         return ref_frame, cur_frame
 
@@ -237,8 +285,11 @@ class PMCTF(nn.Module):
 
     def forward_one_stage(self, ref_frame, cur_frame, q_index, code_lt: bool,
                           dpb, mv_hat=None, stage_idx: int = 0,
-                          me_downsample: int = 1):
-        """Code one temporal decomposition pair (estimate path).
+                          me_downsample: int = 1, training: bool = False,
+                          noise=None):
+        """Code one temporal decomposition pair: the estimate path, or
+        with ``training`` (and optionally the MV rate terms' ``noise``,
+        see compute_and_code_motion) one pair of the training step.
 
         With `mv_hat` (the luma MVs) this is the chroma pass: the MVs are
         halved and no motion is coded."""
@@ -248,12 +299,14 @@ class PMCTF(nn.Module):
             mv_hat = bilinear_downsample(mv_hat) / 2.0
         else:
             mv_hat, ref_mv, bpp_mv_y, bpp_mv_z = self.compute_and_code_motion(
-                ref_frame, cur_frame, q_index, dpb, stage_idx, me_downsample)
+                ref_frame, cur_frame, q_index, dpb, stage_idx, me_downsample,
+                training, noise)
 
         l_t, h_t, pred, inv_pred = self.forward_mctf(
             ref_frame, cur_frame, mv_hat, stage_idx)
         res_h = self.hp_coder(h_t, q_index,
-                              qp_scale=self.hp_qp_scale(q_index, stage_idx))
+                              qp_scale=self.hp_qp_scale(q_index, stage_idx),
+                              training=training)
         has_mv_bits = bpp_mv_y is not None
         pixels = ref_frame.shape[2] * ref_frame.shape[3]
         ret = {
@@ -273,7 +326,7 @@ class PMCTF(nn.Module):
             "H_t": res_h["x_hat"],
         }
         if code_lt:
-            res_l = self.lp_coder(l_t, q_index)
+            res_l = self.lp_coder(l_t, q_index, training=training)
             ret["bpp_L"] = res_l["bpp_total"]
             ret["bit_L"] = res_l["bits_total"]
             ret["mse_L"] = res_l["mse"]

@@ -6,7 +6,8 @@ range (21 rate points), the LL subband coded by the masked-conv AR model
 (``ll_mode="ar"``, the reference's) or a four-step checkerboard prior
 (``ll_mode="fourstep"``), the lh/hl/hh subbands (coarse to fine, with the
 LSTM subband context) by four-step priors, Laplace rate estimate,
-synthesis and PostProcess. ``forward`` is the estimate path; the
+synthesis and PostProcess. ``forward`` is the estimate path, and with
+``training=True`` the training forward (straight-through rounding); the
 bitstream codec (codec/image_codec.py) calls ``quantize_planes``,
 ``ctx_init``/``ctx_step``, ``ar_params``, the four-step modules'
 ``hier_params`` / ``spatial_params`` and ``reconstruct``.
@@ -20,7 +21,7 @@ import torch
 import torch.nn as nn
 
 from ..entropy.distributions import laplace_bits
-from ..ops.quant import ste_clamp
+from ..ops.quant import quant_ste, ste_clamp
 from .context import ContextFusionFourStep, ContextFusionSubband, SubbandContext
 from .postprocess import PostProcess
 from .wavelet import LiftingScheme2D
@@ -117,10 +118,12 @@ class PWave(nn.Module):
     def dequantize_subband(self, subband, q_scale):
         return subband / q_scale if self.lossy else subband
 
-    def forward(self, x, q_index=None, qp_scale=None):
-        """Forward with entropy-estimated rate (no bitstream).
+    def forward(self, x, q_index=None, qp_scale=None, training: bool = False):
+        """Forward with entropy-estimated rate (no bitstream): hard
+        rounding, or with ``training`` straight-through rounding.
 
-        Returns dict with x_hat, per-sample bits, bits_total, bpp_total, mse.
+        Returns dict with x_hat, per-sample bits, bits_total, bpp_total
+        (the batch's bits over B*H*W), mse.
         """
         q_scale, q_scale_ll = self.current_q(q_index, qp_scale)
         y = self.analysis(x)
@@ -130,11 +133,11 @@ class PWave(nn.Module):
 
         ll = self.quantize_subband(y[L - 1]["ll"], q_scale_ll)
         if self.ll_mode == "ar":
-            ll_hat = torch.round(ll)
+            ll_hat = quant_ste(ll, training)
             scales, means = self.ar_params(ll_hat)
             bits = laplace_bits(ll_hat - means, scales).sum(dim=(1, 2, 3))
         else:
-            _, ll_q, ll_hat, s_hat = fusion[L - 1]["ll"](ll)
+            _, ll_q, ll_hat, s_hat = fusion[L - 1]["ll"](ll, training=training)
             bits = laplace_bits(ll_q, s_hat).sum(dim=(1, 2, 3))
         subbands_hat[L - 1]["ll"] = ll_hat
 
@@ -147,7 +150,7 @@ class PWave(nn.Module):
                 prev = subbands_hat[lvl + 1][band] if lvl < L - 1 else None
                 s_curr = self.quantize_subband(y[lvl][band], q_scale)
                 _, s_q, s_hat_band, scales = fusion[lvl][band](
-                    s_curr, context=ctx, prev_subband=prev)
+                    s_curr, context=ctx, prev_subband=prev, training=training)
                 subbands_hat[lvl][band] = s_hat_band
                 bits = bits + laplace_bits(s_q, scales).sum(dim=(1, 2, 3))
                 up = lvl - 1 if (band == "hh" and lvl > 0) else None

@@ -3,6 +3,9 @@
 Counterpart of learned_pmctf_tpu/models/spynet.py with luma_mode=True:
 the net runs on 1-channel planes, so conv1 takes 4 inputs (current,
 warped reference, 2 flow channels), the reference's RGB slices summed.
+``fast_warp`` warps inside the pyramid with the separable
+``flow_warp_fast``, clamped as PMCTF clamps it (PMCTF wires it to its
+``warp_mode``).
 """
 
 import torch
@@ -10,7 +13,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.resample import avg_pool2, bilinear_upsample
-from ..ops.warp import flow_warp
+from ..ops.warp import PMCTF_MAX_DISP, flow_warp, flow_warp_fast
 from .layers import Conv2d
 
 
@@ -36,10 +39,16 @@ class MEBasic(nn.Module):
 class MESpynet(nn.Module):
     """Pyramid flow from im1 (current) to im2 (reference), both (B,1,H,W)."""
 
-    def __init__(self, levels: int = 6):
+    def __init__(self, levels: int = 6, fast_warp: bool = False):
         super().__init__()
         self.levels = levels
+        self.fast_warp = fast_warp
         self.moduleBasic = nn.ModuleList(MEBasic(4) for _ in range(levels))
+
+    def _warp(self, im, flow):
+        if self.fast_warp:
+            return flow_warp_fast(im, flow, PMCTF_MAX_DISP)
+        return flow_warp(im, flow)
 
     def forward(self, im1, im2):
         im1_list, im2_list = [im1], [im2]
@@ -51,7 +60,7 @@ class MESpynet(nn.Module):
         for level in range(self.levels):
             flow_up = bilinear_upsample(flow) * 2.0
             idx = self.levels - 1 - level
-            inp = torch.cat([im1_list[idx], flow_warp(im2_list[idx], flow_up),
+            inp = torch.cat([im1_list[idx], self._warp(im2_list[idx], flow_up),
                              flow_up], dim=1)
             flow = flow_up + self.moduleBasic[level](inp)
         return flow

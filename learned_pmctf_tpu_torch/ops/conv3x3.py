@@ -31,7 +31,14 @@ All are deterministic (fixed summation order, no atomics) and fuse bias,
 residual and activation into an f32 epilogue.
 
 ``conv3x3`` launches a kernel for CUDA tensors, or raises; it runs the
-plain version ``conv3x3_plain`` only for tensors on the CPU.
+plain version ``conv3x3_plain`` only for tensors on the CPU. With grad
+mode on and an input that requires grad it goes through
+``Conv3x3Function``, whose input gradient is a 3x3 'same' conv of the
+pre-activation gradient with the flipped, transposed weights and runs
+through the kernels again (a 64->64 conv's is 64->64, a 1->64 conv's is
+64->1 on ``head_o1``, a 64->1 conv's is 1->64 on ``direct_f32``); the
+Pallas kernel had no backward (it was inference-only), and the weight
+gradient is stock PyTorch, as XLA computed it for the JAX package.
 ``conv3x3_split_plain`` is the plain emulation of the three-product sum.
 The shared library is built with nvcc from the repo's sources at first
 use into ``learned_pmctf_tpu_torch/build/`` (one nvcc a source, run
@@ -300,16 +307,90 @@ def _launch(x, w, b, act, residual, variant):
     return y
 
 
-def conv3x3(x, w, b, act=None, residual=None):
-    """act(conv3x3(x, w) + b [+ residual]) with stride 1, 'same' zero pad.
-
-    x (N,C,H,W), w (O,C,3,3), b (O,), residual (N,O,H,W); f32, contiguous.
-    act: None | 'leaky_relu' (slope 0.2) | 'tanh'.
-    """
+def _forward(x, w, b, act, residual):
+    """The kernel for CUDA tensors; the plain version only on the CPU."""
     if x.device.type == "cpu":
         _check(x, w, b, act, residual)
         return conv3x3_plain(x, w, b, act, residual)
     return _launch(x, w, b, act, residual, None)
+
+
+def flipped_weights(w):
+    """(C, O, 3, 3) weights of the input gradient of a 3x3 'same' conv
+    with (O, C, 3, 3) weights ``w``: the taps flipped, the channels
+    swapped. dL/dx = conv3x3(dL/dy, flipped_weights(w)), no bias."""
+    return w.flip(2, 3).transpose(0, 1).contiguous()
+
+
+def weight_grad(x, w_shape, g):
+    """dL/dw of a 3x3 'same' conv with input x and pre-activation gradient
+    g: one stock ``torch.nn.grad.conv2d_weight`` call with the batch folded
+    into groups, so that each sample's products are summed on their own,
+    then the N parts summed. One call over the batch accumulates N*H*W
+    products a weight in cuDNN's f32 weight-gradient algorithm and misses
+    float64 by about 1.5e-4 of the largest magnitude at 16x64x256x256
+    (``chip_smoke.py`` measures both); per sample the sums are N times
+    shorter."""
+    n, c, h, w = x.shape
+    o = w_shape[0]
+    parts = torch.nn.grad.conv2d_weight(
+        x.reshape(1, n * c, h, w), (n * o, c, 3, 3), g.reshape(1, n * o, h, w),
+        padding=1, groups=n)
+    return parts.view(n, o, c, 3, 3).sum(0)
+
+
+class Conv3x3Function(torch.autograd.Function):
+    """``conv3x3`` with a gradient. Forward: the kernel (its plain version
+    on the CPU); saves x, w and the output. Backward: the pre-activation
+    gradient g from the saved output (LeakyReLU: y >= 0 iff the
+    pre-activation is, derivative 1 at 0 as the epilogue's ``>=``; tanh:
+    1 - y^2), then d_residual = g, d_b = g summed over N, H, W,
+    d_x = conv3x3(g, flipped_weights(w), 0) through the kernel again, and
+    d_w by ``weight_grad`` (stock PyTorch: the JAX package has no backward
+    kernel; XLA computed this gradient there)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, residual, act):
+        y = _forward(x, w, b, act, residual)
+        ctx.act = act
+        ctx.save_for_backward(x, w, y)
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        x, w, y = ctx.saved_tensors
+        if ctx.act == "leaky_relu":
+            g = torch.where(y >= 0, dy, 0.2 * dy)
+        elif ctx.act == "tanh":
+            g = dy * (1 - y * y)
+        else:
+            g = dy
+        g = g.contiguous()
+        need_x, need_w, need_b, need_r, _ = ctx.needs_input_grad
+        d_x = d_w = d_b = None
+        if need_x:
+            d_x = _forward(g, flipped_weights(w), w.new_zeros(w.shape[1]), None,
+                           None)
+        if need_w:
+            d_w = weight_grad(x, w.shape, g)
+        if need_b:
+            d_b = g.sum((0, 2, 3))
+        return d_x, d_w, d_b, (g if need_r else None), None
+
+
+def conv3x3(x, w, b, act=None, residual=None):
+    """act(conv3x3(x, w) + b [+ residual]) with stride 1, 'same' zero pad.
+
+    x (N,C,H,W), w (O,C,3,3), b (O,), residual (N,O,H,W); f32, contiguous.
+    act: None | 'leaky_relu' (slope 0.2) | 'tanh'. With grad mode on and an
+    input that requires grad it goes through ``Conv3x3Function``; otherwise
+    it launches the kernel and records nothing.
+    """
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, b, residual)):
+        return Conv3x3Function.apply(x, w, b, residual, act)
+    return _forward(x, w, b, act, residual)
 
 
 conv3x3.launches = 0

@@ -34,3 +34,19 @@ class _LowerBound(torch.autograd.Function):
 def lower_bound(x, bound: float):
     """max(x, bound); the gradient passes where x >= bound or g < 0."""
     return _LowerBound.apply(x, bound)
+
+
+def quant_ste(x, training: bool = True):
+    """Quantize: STE round when training, hard round otherwise."""
+    return ste_round(x) if training else torch.round(x)
+
+
+def add_uniform_noise(x, noise):
+    """x + U(-0.5, 0.5) noise, a proxy for rounding in training; no
+    gradient flows into the noise. `noise` is the noise tensor itself
+    (shaped like x) or an explicit torch.Generator to draw it from; the
+    global generator is never used."""
+    if isinstance(noise, torch.Generator):
+        noise = torch.rand(x.shape, generator=noise, dtype=x.dtype,
+                           device=noise.device) - 0.5
+    return x + noise.to(x.device).detach()

@@ -1,8 +1,10 @@
 """Bilinear backward warp (motion compensation) on NCHW tensors.
 
-Counterpart of learned_pmctf_tpu/ops/warp.py:flow_warp: sample at
+Counterpart of learned_pmctf_tpu/ops/warp.py: ``flow_warp`` samples at
 (x + flow_x, y + flow_y) with coordinates clamped to the image, which is
-``grid_sample`` with border padding and align_corners=True.
+``grid_sample`` with border padding and align_corners=True;
+``flow_warp_fast`` is the JAX package's separable warp (an opt-in,
+``PMCTF(warp_mode="fast")``).
 """
 
 import torch
@@ -21,3 +23,52 @@ def flow_warp(feature, flow):
     grid = torch.stack([gx, gy], dim=3)
     return F.grid_sample(feature, grid, mode="bilinear",
                          padding_mode="border", align_corners=True)
+
+
+def _clip(x, lo: float, hi: float):
+    """jnp.clip with its gradient: half of it at a bound that x equals
+    (torch.clamp passes all of it), as where the zero flow puts the first
+    and last columns exactly on the border."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
+# the clamp PMCTF gives the fast warp (the JAX PMCTF's warp_max_disp)
+PMCTF_MAX_DISP = 32
+
+
+def flow_warp_fast(feature, flow, max_disp: int = 64):
+    """The JAX package's separable warp, with the same numbers.
+
+    Displacements are clamped to +-max_disp, and the warp is separable:
+    the two source rows are picked per output position and blended by the
+    vertical fraction first; then, within that blended row, the two
+    source columns are picked per output position and blended by the
+    horizontal fraction. So the value read at column x0 was blended with
+    the vertical fraction of output column x0, not of the output's own
+    column: exact where flow_y is horizontally smooth. The TPU version
+    selects among 2 (2 max_disp + 1) shifted copies to avoid gathers;
+    here each pick is one ``gather`` (its gradient a scatter-add, as the
+    selects' is)."""
+    b, c, h, w = feature.shape
+    d = float(max_disp)
+    fx = _clip(flow[:, 0:1], -d, d)
+    fy = _clip(flow[:, 1:2], -d, d)
+    col = torch.arange(w, dtype=fx.dtype, device=fx.device).view(1, 1, 1, w)
+    row = torch.arange(h, dtype=fy.dtype, device=fy.device).view(1, 1, h, 1)
+    px = _clip(col + fx, 0.0, w - 1.0)
+    py = _clip(row + fy, 0.0, h - 1.0)
+    x0, y0 = torch.floor(px), torch.floor(py)
+    wx, wy = px - x0, py - y0
+    x0, y0 = x0.long(), y0.long()
+
+    def rows(r):
+        return torch.gather(feature, 2, r.clamp(max=h - 1).expand(b, c, h, w))
+
+    v0 = rows(y0)
+    v = v0 + (rows(y0 + 1) - v0) * wy
+
+    def cols(q):
+        return torch.gather(v, 3, q.clamp(max=w - 1).expand(b, c, h, w))
+
+    h0 = cols(x0)
+    return h0 + (cols(x0 + 1) - h0) * wx

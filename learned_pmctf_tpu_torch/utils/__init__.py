@@ -1,1 +1,2 @@
-"""Host-side helpers of the bitstream path."""
+"""Host-side helpers: stream containers, metrics, YUV and JSON I/O,
+training schedules, logging and checkpoints."""
