@@ -23,8 +23,8 @@ exits non-zero:
 5. slice: the full-width pMCTF-L (seeded random weights) codes a GOP-4
    of padded-1080p frames through code_gop; the conv3x3 launches of
    that run are counted, then the GOP is timed, and run once more with
-   PostProcess on the plain version to compare the reconstructions; a
-   GOP-16 (bench.py's length) is timed once, with its launches counted;
+   PostProcess on the plain version to compare the reconstructions (the
+   f32 exact-warp GOP-16 is timed by phase 20's bench);
 6. profile: one more GOP under torch.profiler, its device time split by
    layer (SpyNet, MV coding, lifting, LSTM context, four-step priors,
    PostProcess) and the device's idle share;
@@ -33,7 +33,7 @@ exits non-zero:
    the card and on the CPU: each side decodes bit-exactly what it
    encoded, and the two sides' reconstructions agree;
 8. stream: the real-bitstream path at full width, the model and frames
-   of the slice phase: GOP-4 encode+decode (a warm-up, then 3 timed
+   of the slice phase: GOP-4 encode+decode (a warm-up, then 2 timed
    runs), an encode-only run and a run with overlapped (asynchronous)
    decodes. Every decoded band and mv_hat must equal the encoder side bit
    for bit, every stream file's bytes must be the same in every run, and
@@ -83,11 +83,36 @@ exits non-zero:
 17. train_cli: both training CLIs in their own processes on a synthetic
    PNG dataset: all 8 curriculum stages, a resume, 2 pWave steps.
 
+18. kernel_bf16 (run after phase 3): the bf16 instance of the kernel (act_bf16's operands:
+   bf16 x, weights and residual, f32 bias, bf16 out) at the main path's
+   six shapes: each bf16 variant against its bf16 plain version (one bf16
+   ulp plus 1e-5 of the largest output, at most 1e-3 of the elements
+   differing), against float64 on the bf16-rounded operands (half a bf16
+   ulp plus 1e-5 of the largest output), launched twice for bit-equality,
+   timed beside its plain version, one cuDNN bf16 F.conv2d call and its
+   bound (bf16 bytes over the memory rate, operations over the dense bf16
+   rate); ptxas' registers and spills of the bf16 kernels;
+19. bench_small_reference: the small model's GOP-4 in bench.py's
+   configuration (fast warp, act_bf16) at 64x64 on the card against the
+   CPU: max |card - CPU| <= 0.25 max |card bf16 - card f32| on the bits
+   of all frames and on the luma and chroma reconstructions;
+20. bench: the port's bench (learned_pmctf_tpu_torch.cli.bench
+   --secondary) in its own process: bench.py's configuration at full
+   width, GOP-16 padded 1080p (median of 3), the exact-warp f32 GOP-16
+   and the fast-warp stream GOP-4; then in this process the bench
+   configuration's GOP-4 with its conv3x3 launches counted and one GOP
+   profiled by layer, with the device's idle share.
+Phase 15 also times the stage-6 GOP-4 step with the fast warp (the
+trainer's default, cli/train_pmctf.py), with its idle share.
+
 Then it prints the variants the main path did not take, the kernels line
-(one entry a variant the main path launched; ``launches`` counts the
-estimate GOP-4, ``stream_launches`` the stream GOP-4, ``ar_launches`` and
+(one entry a variant a path launched; ``launches`` counts the estimate
+GOP-4 for the f32 variants and the bench configuration's GOP-4 for the
+bf16 ones, ``stream_launches`` the stream GOP-4, ``ar_launches`` and
 ``ar_stream_launches`` the same with the AR LL coder, ``train_launches``
-a GOP-4 train step) and, last, {"ok": true, "device": ...}.
+a GOP-4 train step, ``bench_launches`` the bench configuration's GOP-4;
+each path launches exactly its variants: the f32 paths the f32 ones, the
+bench the bf16 ones) and, last, {"ok": true, "device": ...}.
 """
 
 import json
@@ -106,16 +131,24 @@ import torch.nn.functional as F
 # H100 SXM, dense, at the 700 W limit (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 TENSOR_VARIANTS = ("mma_sync_3xtf32", "wgmma_3xtf32")
+BF16_VARIANTS = ("wgmma_bf16", "head_bf16", "direct_bf16")
+BF16_FLOOR = 1e-5  # of the largest output: the f32 sums' order, where they cancel
+BF16_SHARE = 1e-3  # of the elements that may differ from the plain version
 KERNEL_TOL = 1e-3  # against the plain version (cuDNN f32, TF32 off)
 F64_TOL = 1e-4     # against float64: one TF32 product errs by ~1.6e-3 here
 GOP = 4
 LUMA = (1152, 1920)  # 1080p padded to a multiple of 128
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({**obj, "t_s": round(time.perf_counter() - T0, 1)}), flush=True)
 
 
 def cuda_ms(fn, reps=10):
@@ -195,18 +228,23 @@ def phase_build():
           "ptxas": ptxas, "rans_library_seconds": rans_seconds,
           "rans_sources": [src.split("learned_pmctf_tpu_torch/")[-1]
                            for src in native.SOURCES]})
+    return ptxas
 
 
 def conv_bound(n, c, o, h, w, residual, variant):
     """Least time the card could take, in ms: the larger of bytes over the
     memory rate and operations over the peak rate of the unit the variant
-    runs on (a tensor-core variant does three TF32 products)."""
+    runs on (a tensor-core variant does three TF32 products); for the
+    bf16 instance bf16 bytes (the bias f32) and the dense bf16 rate."""
     flops = 2.0 * n * h * w * 9 * c * o
-    nbytes = 4.0 * (n * c * h * w + o * c * 9 + o + n * o * h * w
-                    * (2 if residual else 1))
+    e = 2.0 if variant in BF16_VARIANTS else 4.0
+    nbytes = e * (n * c * h * w + o * c * 9 + n * o * h * w
+                  * (2 if residual else 1)) + 4.0 * o
     t_f32 = flops / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    if variant in TENSOR_VARIANTS:
+    if variant in BF16_VARIANTS:
+        t_ops, unit = flops / PEAK_BF16_FLOPS * 1e3, "dense bf16 rate"
+    elif variant in TENSOR_VARIANTS:
         t_ops, unit = 3 * flops / PEAK_TF32_FLOPS * 1e3, "3 TF32 products, tensor cores"
     else:
         t_ops, unit = t_f32, "f32 cores"
@@ -288,6 +326,91 @@ def phase_kernel():
     return rows
 
 
+def bf16_ulp(v):
+    """One bf16 ulp (8 significant bits) of |v|, elementwise."""
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(1e-30))) - 7)
+
+
+def measure_conv_bf16(label, n, c, o, hh, ww, act, res, g):
+    """One shape of the bf16 kernel phase: every bf16 variant that takes
+    the shape against the bf16 plain version and float64 on the
+    bf16-rounded operands, launched twice, timed beside the plain
+    version, one cuDNN bf16 call and the bound."""
+    from learned_pmctf_tpu_torch.ops import conv3x3 as c3
+    x = torch.randn(n, c, hh, ww, device="cuda", generator=g).bfloat16()
+    wt = (torch.randn(o, c, 3, 3, device="cuda", generator=g) / (3 * c ** 0.5)).bfloat16()
+    b = torch.randn(o, device="cuda", generator=g) * 0.1
+    r = torch.randn(n, o, hh, ww, device="cuda", generator=g).bfloat16() if res else None
+    variant, *others = c3.variants_for(c, o, ww, torch.bfloat16)
+    plain = c3.conv3x3_plain(x, wt, b, act=act, residual=r).float()
+    ref64 = c3.conv3x3_plain(x.double(), wt.double(), b.double(), act=act,
+                             residual=None if r is None else r.double())
+    floor, floor64 = (BF16_FLOOR * float(t.abs().max()) for t in (plain, ref64))
+    row = {"phase": "kernel_bf16", "name": "conv3x3", "shape": label,
+           "x": [n, c, hh, ww], "o": o, "variant": variant,
+           "tol": "1 bf16 ulp + 1e-5 of the largest output, <= 1e-3 of the elements differing",
+           "f64_tol": "half a bf16 ulp + 1e-5 of the largest output"}
+    for v in [variant] + others:
+        run = lambda: c3.conv3x3_variant(v, x, wt, b, act=act, residual=r)  # noqa: E731
+        y = run()
+        torch.cuda.synchronize()
+        if y.dtype != torch.bfloat16:
+            raise AssertionError(f"conv3x3 {label} {v}: wrote {y.dtype}")
+        yf = y.float()
+        d = (yf - plain).abs()
+        ulps = float((d / (bf16_ulp(torch.maximum(yf.abs(), plain.abs())) + floor)).max())
+        share = float((d > 0).float().mean())
+        d64 = (y.double() - ref64).abs()
+        ulps64 = float((d64 / (0.5 * bf16_ulp(ref64) + floor64)).max())
+        same = torch.equal(y, run())
+        if not (ulps <= 1.0 and share <= BF16_SHARE):
+            raise AssertionError(f"conv3x3 {label} {v}: {ulps} of the allowed difference "
+                                 f"from the plain version, {share} of the elements differ")
+        if not ulps64 <= 1.0:
+            raise AssertionError(f"conv3x3 {label} {v}: {ulps64} of the allowed "
+                                 f"difference from float64")
+        if not same:
+            raise AssertionError(f"conv3x3 {label} {v}: two launches differ")
+        stats = {"max_abs_err": float(d.max()), "of_allowed": ulps, "share_differing": share,
+                 "err_f64": float(d64.max()), "of_allowed_f64": ulps64,
+                 "deterministic": same, "ms": cuda_ms(run)}
+        if v == variant:
+            row.update(stats)
+        else:
+            row.update({f"{v}_{k}": val for k, val in stats.items()})
+        del y, yf, d, d64
+    del ref64, plain
+    row["plain_ms"] = cuda_ms(lambda: c3.conv3x3_plain(x, wt, b, act=act, residual=r))
+    bb = b.bfloat16()
+    row["library_ms"] = cuda_ms(lambda: F.conv2d(x, wt, bb, padding=1))
+    row.update(conv_bound(n, c, o, hh, ww, res, variant))
+    if not row["ms"] >= row["bound_ms"]:
+        raise AssertionError(f"conv3x3 {label}: {row['ms']} ms is under its "
+                             f"bound {row['bound_ms']} ms")
+    emit(row)
+    return row
+
+
+def phase_kernel_bf16(ptxas):
+    """The bf16 instance at the main path's six shapes."""
+    h, w = LUMA
+    cases = [
+        ("luma 64->64 leaky_relu", 1, 64, 64, h, w, "leaky_relu", False),
+        ("luma 64->64 residual", 1, 64, 64, h, w, None, True),
+        ("luma 1->64", 1, 1, 64, h, w, None, False),
+        ("luma 64->1", 1, 64, 1, h, w, None, False),
+        ("chroma 64->64 leaky_relu", 2, 64, 64, h // 2, w // 2, "leaky_relu", False),
+        ("chroma 64->64 residual", 2, 64, 64, h // 2, w // 2, None, True),
+    ]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = [measure_conv_bf16(*case, g) for case in cases]
+    emit({"phase": "kernel_bf16_ptxas",
+          "kernels": [e for e in ptxas if "Bf16" in e["kernel"]
+                      or "nv_bfloat16" in e["kernel"]]})
+    torch.cuda.empty_cache()
+    return rows
+
+
 def synthetic_gop(n, h, w, device, seed=0):
     """n smooth 8-bit frames moving by (2, 3) px per frame, made on the
     device: luma (1,1,H,W) and chroma (2,1,H/2,W/2)."""
@@ -348,13 +471,13 @@ def check_outputs(out, h, w):
         raise AssertionError(f"bad bit estimates {bits}")
 
 
-def postprocess_launches(w, planes):
+def postprocess_launches(w, planes, dtype=torch.float32):
     """conv3x3 launches by variant of `planes` PostProcess calls: one
     1->64 conv, thirteen 64->64, one 64->1 each."""
     from learned_pmctf_tpu_torch.ops.conv3x3 import variants_for
-    return {variants_for(1, 64, w)[0]: planes,
-            variants_for(64, 64, w)[0]: 13 * planes,
-            variants_for(64, 1, w)[0]: planes}
+    return {variants_for(1, 64, w, dtype)[0]: planes,
+            variants_for(64, 64, w, dtype)[0]: 13 * planes,
+            variants_for(64, 1, w, dtype)[0]: planes}
 
 
 def timed_code_gop(model, luma, chroma):
@@ -397,7 +520,6 @@ def phase_slice(smi):
     from learned_pmctf_tpu_torch.gop import code_gop
     from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
     from learned_pmctf_tpu_torch.models.postprocess import PostProcess
-    from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3
     h, w = LUMA
     t0 = time.perf_counter()
     model = build_pmctf("cuda", seed=0, num_me_stages=4)
@@ -405,19 +527,6 @@ def phase_slice(smi):
     luma, chroma = synthetic_gop(GOP, h, w, "cuda")
     out, est = timed_code_gop(model, luma, chroma)
     by_variant = est["conv3x3_launches_by_variant"]
-
-    # GOP-16, the length bench.py codes: one cold run of its 15 pairs
-    luma16, chroma16 = synthetic_gop(16, h, w, "cuda", seed=2)
-    conv3x3.launches = 0
-    t = time.perf_counter()
-    out16 = code_gop(model, luma16, chroma16, 10.0)
-    torch.cuda.synchronize()
-    gop16_ms = (time.perf_counter() - t) * 1e3
-    launches16 = conv3x3.launches
-    if launches16 != 15 * 2 * 16:
-        raise AssertionError(f"GOP-16: conv3x3 launched {launches16} times")
-    check_outputs(out16, h, w)
-    del luma16, chroma16, out16
 
     posts = [m for m in model.modules() if isinstance(m, PostProcess)]
     for m in posts:
@@ -433,8 +542,6 @@ def phase_slice(smi):
           "gop": GOP, "luma": [h, w], "chroma": [2, h // 2, w // 2],
           "q_index": 10, "model_build_s": build_s, **est,
           "plain_postprocess_gop_ms": plain_gop_ms,
-          "gop16_ms": gop16_ms, "gop16_frames_per_s": 16 / (gop16_ms / 1e3),
-          "gop16_conv3x3_launches": launches16,
           "max_abs_recon_diff_vs_plain": diff,
           "bits": {str(k): v for k, v in out["bits"].items()},
           "card": smi})
@@ -482,7 +589,7 @@ def device_kernels(prof):
     return kernels, busy_ms
 
 
-def phase_profile(model, luma, chroma):
+def phase_profile(model, luma, chroma, phase="profile"):
     """Device time of one GOP by layer (torch.profiler, CUPTI)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -523,7 +630,7 @@ def phase_profile(model, luma, chroma):
         if "conv3x3" in e.key and "_kernel" in e.key) / 1e3
     by_layer["other"] = busy_ms - sum(by_layer.values())
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
-    emit({"phase": "profile", "gop": GOP, "wall_ms_profiled": wall_ms,
+    emit({"phase": phase, "gop": GOP, "wall_ms_profiled": wall_ms,
           "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms,
           "device_ms_by_layer": by_layer,
           "top_device_ops_ms": {e.key[:80]: e.self_device_time_total / 1e3
@@ -598,7 +705,7 @@ def stream_ar_expect(model):
 
 def stream_runs(model, luma, chroma, est_bits, ll_mode="fourstep"):
     """The real-bitstream GOP-4 at full width (see the module docstring):
-    a warm-up and 3 timed encode+decode runs, an encode-only run, an
+    a warm-up and 2 timed encode+decode runs, an encode-only run, an
     overlapped-decode run and two profiled GOPs. Returns the phase's
     numbers and the launches by variant of one encode+decode run."""
     from learned_pmctf_tpu_torch.codec.video_codec import PMCTFCodec
@@ -661,10 +768,10 @@ def stream_runs(model, luma, chroma, est_bits, ll_mode="fourstep"):
     try:
         run("warmup")
         torch.cuda.reset_peak_memory_stats()
-        timed = [run(f"run{i}") for i in range(3)]
+        timed = [run(f"run{i}") for i in range(2)]
         peak = torch.cuda.max_memory_allocated()
         out, _, by_variant = timed[0]
-        stats = sorted((s for _, s, _ in timed), key=lambda s: s["ms"])[1]
+        stats = dict(timed[-1][1], ms=statistics.median(s["ms"] for _, s, _ in timed))
         _, enc_stats, _ = run("encode_only", sides=1, skip_decoding=True)
         _, async_stats, _ = run("decode_async", decode_async=True)
         nbytes = {f: len(b) for f, b in ref_files.items()}
@@ -896,6 +1003,119 @@ def phase_cli(smi):
             raise AssertionError(f"cli summary {summary}")
     emit({"phase": "cli", "command": " ".join(cmd[1:]), "wall_s": wall_s,
           "logs": logs, "summary": summary, "card": smi})
+
+
+# ---- bench.py's configuration (phases 19-20) ----------------------------------
+
+def _policy_gap(got, bf16, f32):
+    """(max |got - bf16|, max |bf16 - f32|) over all values of an output."""
+    flat = [torch.cat([torch.as_tensor(v, dtype=torch.float64).reshape(-1).cpu()
+                       for v in vals]) for vals in (got, bf16, f32)]
+    return (float((flat[0] - flat[1]).abs().max()),
+            float((flat[1] - flat[2]).abs().max()))
+
+
+def phase_bench_small_reference():
+    """The small model in bench.py's configuration (fast warp, act_bf16),
+    GOP-4 at 64x64: the card against the CPU, under the 0.25 rule against
+    the card's own f32 run."""
+    from learned_pmctf_tpu_torch.gop import code_gop
+    from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
+    cfg = dict(SMALL, warp_mode="fast")
+    luma, chroma = synthetic_gop(GOP, 64, 64, "cpu", seed=1)
+    runs = {}
+    for name, dev, bf16 in (("cpu", "cpu", True), ("card", "cuda", True),
+                            ("card_f32", "cuda", False)):
+        model = build_pmctf(dev, seed=1, act_bf16=bf16, **cfg)
+        runs[name] = code_gop(model, luma, chroma, 10.0, device=dev)
+    keys = [(fi, k) for fi in sorted(runs["card"]["bits"])
+            for k in sorted(runs["card"]["bits"][fi])]
+    names = ("cpu", "card", "card_f32")
+    outputs = {"bits": [[[r["bits"][fi][k] for fi, k in keys]] for r in
+                        (runs[n] for n in names)]}
+    for plane in ("luma", "chroma"):
+        outputs[plane] = [runs[n][plane] for n in names]
+    outputs["reconstructions"] = [runs[n]["luma"] + runs[n]["chroma"] for n in names]
+    gaps = {k: _policy_gap(*v) for k, v in outputs.items()}
+    # the rule holds on the bits and on the reconstructions; luma and
+    # chroma apart are reported (where the policy moves a plane by about
+    # an ulp of PostProcess's output, one rounding that cuDNN's sums and
+    # the CPU's put on different sides weighs as much as the policy)
+    bad = {k: gaps[k] for k in ("bits", "reconstructions")
+           if not (gaps[k][1] > 0 and gaps[k][0] <= 0.25 * gaps[k][1])}
+    row = {"phase": "bench_small_reference", "gop": GOP, "size": [64, 64],
+           "config": {**cfg, "act_bf16": True}, "rule": 0.25,
+           "max_diff_cpu_vs_card_and_policy": gaps}
+    if bad:
+        raise AssertionError(f"bench_small_reference: {bad}: {row}")
+    emit(row)
+
+
+def phase_bench(smi):
+    """The port's bench as a user runs it, in its own process (GOP-16 in
+    bench.py's configuration, median of 3; --secondary: the exact-warp
+    f32 GOP-16 and the fast-warp stream GOP-4), then the bench
+    configuration's GOP-4 here: its conv3x3 launches counted, one GOP
+    profiled by layer. Returns the GOP-4's launches by variant."""
+    from learned_pmctf_tpu_torch.cli.bench import BENCH_CONFIG, METRIC, bench_frames
+    from learned_pmctf_tpu_torch.gop import code_gop
+    from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
+    from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3
+    h, w = LUMA
+    cmd = [sys.executable, "-m", "learned_pmctf_tpu_torch.cli.bench", "--secondary"]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall_s = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"bench exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+                             f"\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench printed {len(lines)} lines:\n{proc.stdout[-3000:]}")
+    out = json.loads(lines[0])
+    sec = out["secondary"]
+    exact, stream = sec["estimate_exact_warp_f32"], sec["write_stream_gop4"]
+    want = {"head": postprocess_launches(w, 2 * 16, torch.bfloat16),
+            "exact": postprocess_launches(w, 2 * 16)}
+    checks = [
+        (out["metric"] == METRIC and "vs_baseline" not in out, "metric"),
+        (all(0 < v < float("inf") for v in (out["value"], exact["value"],
+                                             stream["value"])), "frames/s"),
+        (len(out["runs_ms"]) == 3, "three timed runs"),
+        (out["config"]["gop"] == 16 and [out["config"]["height"], out["config"]["width"]]
+         == [h, w], "GOP-16 padded 1080p"),
+        (all(out["config"][k] == v for k, v in BENCH_CONFIG.items()), "configuration"),
+        (out["conv3x3_launches_by_variant"] == want["head"], "bf16 launches"),
+        (exact["conv3x3_launches_by_variant"] == want["exact"], "f32 launches"),
+        (stream["decoded_equal_encoder"], "stream decoded"),
+        (out["device"]["card"] == smi, "card")]
+    bad = [what for ok, what in checks if not ok]
+    if bad:
+        raise AssertionError(f"bench: {bad}: {out}")
+
+    model = build_pmctf("cuda", seed=0, **BENCH_CONFIG)
+    luma, chroma = bench_frames(GOP, h, w, "cuda")
+    code_gop(model, luma, chroma, 10.0)  # warm-up
+    torch.cuda.synchronize()
+    conv3x3.launches, conv3x3.by_variant = 0, {}
+    t = time.perf_counter()
+    gop4 = code_gop(model, luma, chroma, 10.0)
+    torch.cuda.synchronize()
+    gop4_ms = (time.perf_counter() - t) * 1e3
+    by_variant = dict(conv3x3.by_variant)
+    expected = postprocess_launches(w, 2 * GOP, torch.bfloat16)
+    if by_variant != expected:
+        raise AssertionError(f"bench GOP-4: conv3x3 launches {by_variant}, "
+                             f"expected {expected}")
+    check_outputs(gop4, h, w)
+    emit({"phase": "bench", "command": " ".join(cmd[1:]), "wall_s": wall_s,
+          "bench": out, "gop4_ms": gop4_ms, "gop4_conv3x3_launches_by_variant": by_variant,
+          "card": smi})
+    phase_profile(model, luma, chroma, phase="bench_profile")
+    del model, luma, chroma, gop4
+    torch.cuda.empty_cache()
+    return by_variant
 
 
 # ---- training (phases 13-17) -------------------------------------------------
@@ -1289,7 +1509,7 @@ def timed_train_steps(step, frames, noise, steps, expect):
             "log": {k: float(v) for k, v in log.items()}}
 
 
-def weight_grad_ab(step, frames, noise, rounds=4):
+def weight_grad_ab(step, frames, noise, rounds=2):
     """Host time of a train step (ending in a synchronize) with
     PostProcess's weight gradients by ``weight_grad`` (one grouped
     conv2d_weight call, a sample a group, the parts summed) and by one
@@ -1322,8 +1542,8 @@ def phase_train_pmctf(smi):
     """Full-width pMCTF-L (train_pmctf.py's model: num_me_stages 2) at the
     trainer's defaults (batch 8, 128x128 luma, exact warp), seeded:
     curriculum stage 6 (GOP-4, part All, quant_stage on; a warm-up whose
-    launches are counted, 5 timed steps, the weight-gradient A/B) and
-    stage 8 (GOP-16; a counted warm-up, 3 timed steps), then a profile of
+    launches are counted, 3 timed steps, the weight-gradient A/B) and
+    stage 8 (GOP-16; a counted warm-up, 2 timed steps), then a profile of
     one GOP-4 step."""
     from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
     from learned_pmctf_tpu_torch.training.curriculum import PART_PREDICATES
@@ -1340,7 +1560,7 @@ def phase_train_pmctf(smi):
            "parameters": sum(p.numel() for p in model.parameters())}
     step4 = make_pmctf_train_step(model, opt, 4, StageGates.for_stage(5))
     frames4 = train_frames(4, TRAIN_BATCH, TRAIN_PATCH, seed=11)
-    gop4 = timed_train_steps(step4, frames4, noise, 5, train_launch_expect(4, w))
+    gop4 = timed_train_steps(step4, frames4, noise, 3, train_launch_expect(4, w))
     gop4["frames_per_s"] = TRAIN_BATCH * 4 / (gop4["step_ms"] / 1e3)
     # a step packs each PostProcess weight of both coders once after the
     # optimizer changed it (13 wgmma, 1 direct a coder) and the flipped
@@ -1353,9 +1573,10 @@ def phase_train_pmctf(smi):
     gop4["packs"] = check_packs_fresh(model, step4, frames4, noise)
     gop4["weight_grad_ab"] = weight_grad_ab(step4, frames4, noise)
     row["gop4_stage6"] = gop4
+    row["gop4_stage6_fast_warp"] = fast_warp_steps(model, opt, step4, frames4, noise, w)
     step16 = make_pmctf_train_step(model, opt, 16, StageGates.for_stage(7))
     frames16 = train_frames(16, TRAIN_BATCH, TRAIN_PATCH, seed=12)
-    gop16 = timed_train_steps(step16, frames16, noise, 3, train_launch_expect(16, w))
+    gop16 = timed_train_steps(step16, frames16, noise, 2, train_launch_expect(16, w))
     gop16["frames_per_s"] = TRAIN_BATCH * 16 / (gop16["step_ms"] / 1e3)
     gop16["weight_packs_reckoned"] = 14 * (2 + 16)
     row["gop16_stage8"] = gop16
@@ -1364,6 +1585,26 @@ def phase_train_pmctf(smi):
     row["profile_gop4"] = profile_train_step(model, opt, frames4, noise)
     emit({**row, "card": smi})
     return gop4["conv3x3_launches_by_variant"]
+
+
+def fast_warp_steps(model, opt, step, frames, noise, w):
+    """The stage-6 GOP-4 step with the fast warp, cli/train_pmctf.py's
+    default (the same model with warp_mode "fast" in the temporal lifting
+    and SpyNet's pyramid, as build_pmctf(warp_mode="fast") makes it): a
+    counted warm-up, 3 timed steps, finite gradients, a profiled step."""
+    model.warp_mode, model.optic_flow.fast_warp = "fast", True
+    try:
+        out = timed_train_steps(step, frames, noise, 3, train_launch_expect(4, w))
+        out["frames_per_s"] = TRAIN_BATCH * 4 / (out["step_ms"] / 1e3)
+        out["grad_norms"] = norms = grad_norms(model)
+        if not all(0 < v < float("inf") for v in norms.values()):
+            raise AssertionError(f"train_pmctf fast warp: gradient norms {norms}")
+        prof = profile_train_step(model, opt, frames, noise)
+        out["profile"] = {k: prof[k] for k in ("wall_ms_profiled", "device_busy_ms",
+                                               "device_idle_share", "device_ms_by_part")}
+    finally:
+        model.warp_mode, model.optic_flow.fast_warp = "exact", False
+    return out
 
 
 def profile_train_step(model, opt, frames, noise):
@@ -1538,7 +1779,7 @@ def logged(text, key):
 def phase_train_cli(smi):
     """The training CLIs as a user runs them, each in its own process, on
     a synthetic PNG dataset: train_pmctf through all 8 stages of
-    configs/train_mctf_smoke.json (2 steps an epoch, batch 2, 64x64,
+    configs/train_mctf_smoke.json (1 step an epoch, batch 2, 64x64,
     exact warp), a resume from its stage-7 checkpoint, and train_pwave for
     2 steps."""
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1546,7 +1787,7 @@ def phase_train_cli(smi):
         data = os.path.join(d, "vimeo")
         write_png_dataset(data)
         common = ["-d", data, "--batch-size", "2", "--patchsize", "64", "64",
-                  "--steps_per_epoch", "2", "--log_every", "1", "--warp_mode",
+                  "--steps_per_epoch", "1", "--log_every", "1", "--warp_mode",
                   "exact", "--num-workers", "2",
                   "--config", os.path.join(root, "configs", "train_mctf_smoke.json")]
         mod = "learned_pmctf_tpu_torch.cli.train_pmctf"
@@ -1589,17 +1830,23 @@ VARIANT_ROWS = {
     "mma_sync_3xtf32": ("conv3x3_mma.cu", "luma 64->64 leaky_relu"),
     "head_o1": ("conv3x3_head.cu", "luma 64->1"),
     "direct_f32": ("conv3x3.cu", "luma 1->64"),
+    "wgmma_bf16": ("conv3x3_wgmma.cu", "luma 64->64 leaky_relu"),
+    "head_bf16": ("conv3x3_head.cu", "luma 64->1"),
+    "direct_bf16": ("conv3x3.cu", "luma 1->64"),
 }
+# the path whose run gives an entry's "launches"
+MAIN_PATH = {"f32": "launches", "bf16": "bench_launches"}
 
 
-def kernel_entries(rows, launches):
+def kernel_entries(rows, rows_bf16, launches):
     """One entry a variant: the variant's numbers at the shape that stands
     for it, whether the shape took it or timed it beside its own.
-    `launches`: path -> launches by variant of that path's counted run."""
-    by_shape = {r["shape"]: r for r in rows}
+    `launches`: path -> launches by variant of that path's counted run;
+    an entry's "launches" are those of its main path (MAIN_PATH)."""
     entries = []
     for variant, (source, shape) in VARIANT_ROWS.items():
-        row = by_shape[shape]
+        bf16 = variant in BF16_VARIANTS
+        row = {r["shape"]: r for r in (rows_bf16 if bf16 else rows)}[shape]
         own = row["variant"] == variant
         if not own and f"{variant}_ms" not in row:
             continue
@@ -1609,9 +1856,11 @@ def kernel_entries(rows, launches):
             "name": f"conv3x3/{variant}", "route": "cuda",
             "source": f"learned_pmctf_tpu_torch/csrc/{source}",
             "replaces": "learned_pmctf_tpu/ops/pallas_conv.py:159",
-            "launches": launches["launches"].get(variant, 0),
-            **{k: v.get(variant, 0) for k, v in launches.items() if k != "launches"},
-            "max_abs_err": max(r["max_abs_err"] for r in rows if r["variant"] == variant)
+            "dtype": "bf16" if bf16 else "f32",
+            **{k: v.get(variant, 0) for k, v in launches.items()},
+            "launches": launches[MAIN_PATH["bf16" if bf16 else "f32"]].get(variant, 0),
+            "max_abs_err": max(r["max_abs_err"] for r in (rows_bf16 if bf16 else rows)
+                               if r["variant"] == variant)
             if own else row[f"{variant}_max_abs_err"],
             "ms": row["ms"] if own else row[f"{variant}_ms"],
             "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
@@ -1621,10 +1870,24 @@ def kernel_entries(rows, launches):
     return entries
 
 
+def check_paths(launches):
+    """Each path launches exactly its variants: the f32 paths the f32
+    ones the estimate launches, the bench the bf16 ones."""
+    f32 = set(launches["launches"])
+    if f32 & set(BF16_VARIANTS) or set(launches["bench_launches"]) != set(BF16_VARIANTS):
+        raise AssertionError(f"the estimate or the bench launched the other dtype's "
+                             f"variants: {launches}")
+    for path, by_variant in launches.items():
+        want = set(BF16_VARIANTS) if path == "bench_launches" else f32
+        if set(by_variant) != want or not all(by_variant.values()):
+            raise AssertionError(f"{path} launched {by_variant}, expected {sorted(want)}")
+
+
 def main():
     smi = phase_device()
-    phase_build()
+    ptxas = phase_build()
     rows = phase_kernel()
+    rows_bf16 = phase_kernel_bf16(ptxas)
     phase_small_reference()
     by_variant, slice_run = phase_slice(smi)
     phase_stream_small_reference()
@@ -1640,20 +1903,22 @@ def main():
     train_by_variant = phase_train_pmctf(smi)
     phase_train_pwave(smi)
     phase_train_cli(smi)
+    phase_bench_small_reference()
+    bench_by_variant = phase_bench(smi)
     # launches by path: the estimate GOP-4 ("launches"), the stream GOP-4,
-    # both again with the AR LL coder, and a GOP-4 train step (forward,
-    # recompute and input gradients)
+    # both again with the AR LL coder, a GOP-4 train step (forward,
+    # recompute and input gradients), and the bench configuration's GOP-4
     launches = {"launches": by_variant, "stream_launches": stream_by_variant,
                 "ar_launches": ar_by_variant,
                 "ar_stream_launches": ar_stream_by_variant,
-                "train_launches": train_by_variant}
-    entries = kernel_entries(rows, launches)
+                "train_launches": train_by_variant,
+                "bench_launches": bench_by_variant}
+    check_paths(launches)
+    entries = kernel_entries(rows, rows_bf16, launches)
     on_path = [e for e in entries if e["launches"] > 0]
-    if {e["name"].split("/")[1] for e in on_path} != set(by_variant):
-        raise AssertionError(f"no kernel-phase row for a variant of {by_variant}")
-    if any(e[k] == 0 for e in on_path for k in launches):
-        raise AssertionError(f"a kernel of the estimate path was not launched "
-                             f"by another path: {launches}")
+    if ({e["name"].split("/")[1] for e in on_path}
+            != set(by_variant) | set(bench_by_variant)):
+        raise AssertionError(f"no kernel-phase row for a variant of {launches}")
     # variants the kernel phase launched and checked but the main path did
     # not take: the same keys, on a line of their own
     emit({"off_path_variants": [e for e in entries if e["launches"] == 0]})

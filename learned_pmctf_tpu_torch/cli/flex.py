@@ -99,7 +99,8 @@ def parse_args(argv):
     p.add_argument("--channel_mv", type=int, default=64)
     p.add_argument("--decomp_levels", type=int, default=4)
     p.add_argument("--warp_mode", default="exact", choices=("exact", "fast"),
-                   help="only 'exact' is ported (ROADMAP.md A.11 brings 'fast')")
+                   help="temporal-lifting warp: 'exact' = reference bilinear "
+                        "semantics, 'fast' = the separable warp (throughput)")
     p.add_argument("--q_batch", type=str2bool, nargs="?", const=True,
                    default=False, help="not ported yet (ROADMAP.md A.12)")
     p.add_argument("--shard_q", type=str2bool, nargs="?", const=True,
@@ -112,9 +113,6 @@ def parse_args(argv):
     for name, item in NOT_YET.items():
         if getattr(args, name):
             p.error(f"--{name} is not ported yet: ROADMAP.md item {item}")
-    if args.warp_mode != "exact":
-        p.error("--warp_mode fast is not ported yet: ROADMAP.md item A.11 "
-                "(opt-in variants: flow_warp_fast)")
     if args.two_stage_me and args.num_me_stages < 2:
         args.num_me_stages = 2
     return args
@@ -135,7 +133,7 @@ def build_codec(args) -> PMCTFCodec:
         num_me_stages=args.num_me_stages,
         ll_mode=args.ll_mode, features=args.features,
         ar_features=args.ar_features, channel_mv=args.channel_mv,
-        channel_n=args.channel_mv)
+        channel_n=args.channel_mv, warp_mode=args.warp_mode)
     if path and os.path.exists(path):
         if os.path.isdir(path):
             raise ValueError(f"{path} is a directory: an orbax checkpoint of "

@@ -38,6 +38,7 @@ import torch
 
 from ..entropy.coder import (EntropyCoder, GaussianEncoder,
                              build_indexes_from_scales)
+from ..models.layers import f32_streams
 from ..models.pwave import BANDS, PWave
 from ..ops.masks import PHASES
 from ..runtime import deterministic_cudnn, disable_tf32, resolve_device
@@ -163,12 +164,6 @@ class PWaveCodec:
     def update(self, force: bool = False):
         self.em.update(force=force)
 
-    def _fusion(self, key: str):
-        if key == "ll":
-            return self.module.context_fusion[self.module.decomp_levels - 1]["ll"]
-        lvl, band = key.split("_")
-        return self.module.context_fusion[int(lvl)][band]
-
     # ---- subband coding, shared by compress and decompress ---------------
 
     def _code_fourstep(self, key: str, shape, context, prev_subband,
@@ -180,11 +175,11 @@ class PWaveCodec:
         subband> encodes: the same calls with teacher-forced symbols and
         no host copy; plan is the 4 (symbols, indexes) device pairs in
         stream order."""
-        fusion = self._fusion(key)
+        module = self.module
         coder = coder or self.coder
         zeros = torch.zeros(shape, device=self.device)
-        ctx_feat, scales, means = fusion.hier_params(context, prev_subband,
-                                                     like=zeros)
+        ctx_feat, scales, means = module.fusion_hier(key, context, prev_subband,
+                                                     zeros)
         plan = None if teacher is None else []
         x_hat = zeros
         for step, (my, mx) in enumerate(PHASES):
@@ -203,7 +198,7 @@ class PWaveCodec:
             x_hat = x_hat.clone()
             x_hat[:, :, my::2, mx::2] = vals + m
             if step < 3:
-                scales, means = fusion.spatial_params(x_hat, ctx_feat, step)
+                scales, means = module.fusion_spatial(key, x_hat, ctx_feat, step)
         return x_hat, plan
 
     def _ar_plane(self, partial):
@@ -299,6 +294,7 @@ class PWaveCodec:
     # ---- compression -------------------------------------------------------
 
     @torch.no_grad()
+    @f32_streams
     def compress(self, x, q_index, qp_scale=None,
                  file_name: Optional[str] = None, sideinfo=None, coder=None):
         """Encode padded planes x (B,1,H,W); returns (encoder-side
@@ -336,6 +332,7 @@ class PWaveCodec:
     # ---- decompression -----------------------------------------------------
 
     @torch.no_grad()
+    @f32_streams
     def decompress(self, file_name: Optional[str] = None, stream: bytes = None,
                    shape=None, padding: int = 128, q_index=0, qp_scale=None,
                    coder=None):

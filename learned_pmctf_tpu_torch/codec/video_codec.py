@@ -24,6 +24,7 @@ import torch
 from ..entropy.coder import (FactorizedCoder, GaussianEncoder,
                              build_bit_estimator_tables,
                              build_indexes_from_scales)
+from ..models.layers import f32_streams
 from ..models.mv_coder import (MASK_SCHEDULE, four_part_prior_decode_scales,
                                four_part_prior_scatter)
 from ..models.pmctf import PMCTF, empty_dpb
@@ -91,6 +92,7 @@ class PMCTFCodec:
                 max_workers=2, thread_name_prefix="pmctf-enc")
         return self._encode_pool
 
+    @f32_streams
     def update(self, force: bool = False):
         """Build every CDF table, on the host: the Laplace tables (shared
         with both band codecs) and, per ME stage, the MV hyper-latent's
@@ -160,6 +162,7 @@ class PMCTFCodec:
                 "mv_y_hat": mv_y_hat, "plan": plan}
 
     @torch.no_grad()
+    @f32_streams
     def compress_mv(self, ref_y, cur_y, dpb, stage_idx: int = 0, q_index=0,
                     me_downsample: int = 1, coder=None):
         """Encode the motion of one luma pair; the stream is one factorized
@@ -187,6 +190,7 @@ class PMCTFCodec:
         return out
 
     @torch.no_grad()
+    @f32_streams
     def decompress_mv(self, stream: bytes, height: int, width: int, dpb,
                       stage_idx: int = 0, q_index=0, me_downsample: int = 1,
                       coder=None):
@@ -211,6 +215,7 @@ class PMCTFCodec:
         return self.model.forward_mctf(ref, cur, mv_hat, stage_idx)
 
     @torch.no_grad()
+    @f32_streams
     def compress_one_stage(self, ref_frame, cur_frame, code_lt: bool, mv_hat,
                            ischroma: bool, sideinfo=None, file_name=None,
                            stage_idx: int = 0, q_index=0,
@@ -235,6 +240,7 @@ class PMCTFCodec:
         return {"L_t": l_t, "H_t": h_t, "H_t_hat": h_t_hat, "L_t_hat": l_t_hat}
 
     @torch.no_grad()
+    @f32_streams
     def decompress_one_stage(self, file_name: str, code_lt: bool,
                              ischroma: bool, psize: int = 128, q_index=0,
                              stage_idx: int = 0, own_coders: bool = False):
@@ -333,6 +339,7 @@ class PMCTFCodec:
         return False
 
     @torch.no_grad()
+    @f32_streams
     def encode_one_stage(self, ref_frame, cur_frame, code_lt: bool, dpb,
                          output_path: str, pic_width: int, pic_height: int,
                          psize: int = 128, skip_decoding: bool = False,
@@ -448,6 +455,7 @@ class PMCTFCodec:
         }
 
     @torch.no_grad()
+    @f32_streams
     def inverse_mctf(self, l_t, h_t, mv_hat, stage_idx: int = 0,
                      downscale: bool = False):
         return self.model.inverse_mctf(l_t, h_t, mv_hat, stage_idx, downscale)

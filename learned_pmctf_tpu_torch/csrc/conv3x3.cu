@@ -1,5 +1,6 @@
-// Fused 3x3 'same' convolution for Hopper (sm_90a), f32, NCHW: the C
-// interface, the choice of variant, and the variant "direct_f32".
+// Fused 3x3 'same' convolution for Hopper (sm_90a), NCHW: the C
+// interface, the choice of variant, and the variants "direct_f32" and
+// "direct_bf16".
 //
 // Replaces the TPU kernel learned_pmctf_tpu/ops/pallas_conv.py:conv3x3_hcw
 // (Pallas, (N,H,C,W) layout). Computes the same function on NCHW:
@@ -14,6 +15,15 @@
 //   tensors lie on 16 bytes, else "mma_sync_3xtf32" (conv3x3_mma.cu), at
 //   about half the rate;
 // - everything else (C = 1, odd channel counts): "direct_f32", below.
+//
+// The bf16 instance (conv3x3_bf16: bf16 x, residual and y, f32 bias; the
+// Pallas kernel with act_bf16's operands) chooses the same way among
+// - O == 1: "head_bf16" (conv3x3_head.cu);
+// - C % 16 == 0, O % 8 == 0, O <= 64, W % 8 == 0, aligned: "wgmma_bf16"
+//   (conv3x3_wgmma.cu), one bf16 tensor-core product a K step;
+// - everything else: "direct_bf16", the kernel below reading and writing
+//   bf16 and computing in f32 (a product of two bf16 values is exact in
+//   f32, so it computes what the TPU kernel does up to summation order).
 //
 // direct_f32. What bounds it: at C = 1 (the 1->64 input conv of
 // PostProcess) bytes, 64 output planes written for one read; at wide C
@@ -47,11 +57,12 @@ constexpr int kPix = 8;  // output pixels per thread (one column, adjacent rows)
 constexpr int kOc = 8;   // output channels per thread
 constexpr int kTW = 32;  // tile width: one column per lane
 
-template <int OCB, int CC>
+// T: float, or __nv_bfloat16 for x, res and y (the weights are f32)
+template <int OCB, int CC, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ wt,
-               const float* __restrict__ b, const float* __restrict__ res,
-               float* __restrict__ y, int C, int H, int W, int O, int act) {
+conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ wt,
+               const float* __restrict__ b, const T* __restrict__ res,
+               T* __restrict__ y, int C, int H, int W, int O, int act) {
   constexpr int NOG = OCB / kOc;            // oc groups per block
   constexpr int NPG = kThreads / NOG;       // threads per oc group
   constexpr int TH = (NPG / kTW) * kPix;    // tile rows
@@ -74,7 +85,7 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ wt,
   const int oc0 = blockIdx.y * OCB;
   const int n = blockIdx.z;
   const size_t plane = (size_t)H * W;
-  const float* xn = x + (size_t)n * C * plane;
+  const T* xn = x + (size_t)n * C * plane;
 
   float acc[kPix][kOc];
 #pragma unroll
@@ -92,7 +103,7 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ wt,
       const int gx = x0 + q - 1;
       float v = 0.f;
       if (c0 + cc < C && gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = xn[(size_t)(c0 + cc) * plane + (size_t)gy * W + gx];
+        v = to_float(xn[(size_t)(c0 + cc) * plane + (size_t)gy * W + gx]);
       in_s[cc][r][q] = v;
     }
     for (int i = tid; i < CC * 9 * OCB; i += kThreads) {
@@ -143,33 +154,38 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ wt,
       const int gy = y0 + row0 + p;
       if (gy >= H) continue;
       float val = acc[p][o] + bias;
-      if (res != nullptr) val += res[base + (size_t)gy * W];
-      y[base + (size_t)gy * W] = activate(val, act);
+      if (res != nullptr) val += to_float(res[base + (size_t)gy * W]);
+      y[base + (size_t)gy * W] = from_float<T>(activate(val, act));
     }
   }
 }
 
-template <int OCB, int CC>
+template <int OCB, int CC, typename T>
 cudaError_t launch(const Args& a) {
   constexpr int TH = (kThreads / (OCB / kOc) / kTW) * kPix;
   const int tiles = ((a.W + kTW - 1) / kTW) * ((a.H + TH - 1) / TH);
   dim3 grid(tiles, (a.O + OCB - 1) / OCB, a.N);
-  conv3x3_kernel<OCB, CC><<<grid, kThreads, 0, a.stream>>>(
-      a.x, a.w, a.b, a.res, a.y, a.C, a.H, a.W, a.O, a.act);
+  conv3x3_kernel<OCB, CC, T><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const float*>(a.w), a.b,
+      static_cast<const T*>(a.res), static_cast<T*>(a.y), a.C, a.H, a.W, a.O, a.act);
   return cudaGetLastError();
+}
+
+// a.w: the f32 weights as (C, 3, 3, O), i.e. OIHW permuted to (1, 2, 3, 0)
+template <typename T>
+cudaError_t launch_direct_t(const Args& a) {
+  if (a.N > 65535 || (a.O + 7) / 8 > 65535) return cudaErrorInvalidValue;
+  if (a.O <= 8)  // narrow heads: one oc group, 64x32 tiles
+    return launch<8, 4, T>(a);
+  if (a.C == 1)  // input convs (1->64): no idle channels in a chunk
+    return launch<64, 1, T>(a);
+  return launch<64, 8, T>(a);  // 8x32 tiles x 64 output channels
 }
 
 }  // namespace
 
-// a.w: the weights as (C, 3, 3, O), i.e. OIHW permuted to (1, 2, 3, 0)
-cudaError_t launch_direct(const Args& a) {
-  if (a.N > 65535 || (a.O + 7) / 8 > 65535) return cudaErrorInvalidValue;
-  if (a.O <= 8)  // narrow heads: one oc group, 64x32 tiles
-    return launch<8, 4>(a);
-  if (a.C == 1)  // input convs (1->64): no idle channels in a chunk
-    return launch<64, 1>(a);
-  return launch<64, 8>(a);  // 8x32 tiles x 64 output channels
-}
+cudaError_t launch_direct(const Args& a) { return launch_direct_t<float>(a); }
+cudaError_t launch_direct_bf16(const Args& a) { return launch_direct_t<__nv_bfloat16>(a); }
 
 }  // namespace conv3x3
 
@@ -181,6 +197,9 @@ extern "C" int conv3x3_takes(int variant, int C, int O, int W, int aligned) {
     case conv3x3::kHead: return O == 1 && C <= 2048;
     case conv3x3::kMmaSync: return C % 8 == 0 && conv3x3::tc_padded_o(O) != 0;
     case conv3x3::kWgmma: return conv3x3::wgmma_takes(C, O, W, aligned != 0);
+    case conv3x3::kDirectBf16: return 1;
+    case conv3x3::kHeadBf16: return O == 1 && C <= 2048;
+    case conv3x3::kWgmmaBf16: return conv3x3::wgmma_bf16_takes(C, O, W, aligned != 0);
     default: return 0;
   }
 }
@@ -195,28 +214,61 @@ extern "C" int conv3x3_pick(int C, int O, int W, int aligned) {
   return kDirect;
 }
 
+// The same for the bf16 instance.
+extern "C" int conv3x3_pick_bf16(int C, int O, int W, int aligned) {
+  using namespace conv3x3;
+  const int order[] = {kHeadBf16, kWgmmaBf16, kDirectBf16};
+  for (int v : order)
+    if (conv3x3_takes(v, C, O, W, aligned)) return v;
+  return kDirectBf16;
+}
+
 // Output channels of the packed weights a tensor-core variant reads (0 if
 // O has no such variant).
 extern "C" int conv3x3_padded_o(int O) { return conv3x3::tc_padded_o(O); }
 
-// w: the weights in the layout of the variant that runs (ops/conv3x3.py
-// packs them). variant 0 takes conv3x3_pick's choice; another value
-// forces that variant, for measurements, and fails on a shape it does not
-// take. Returns the cudaError_t of the launch.
-extern "C" int conv3x3_f32(const float* x, const float* w, const float* b,
-                           const float* res, float* y, int N, int C, int H,
-                           int W, int O, int act, int variant, void* stream) {
+namespace {
+
+int launch_variant(const conv3x3::Args& a, int variant, bool bf16) {
   using namespace conv3x3;
-  if (N <= 0 || C <= 0 || H <= 0 || W <= 0 || O <= 0 || act < 0 || act > 2)
+  if (a.N <= 0 || a.C <= 0 || a.H <= 0 || a.W <= 0 || a.O <= 0 || a.act < 0 || a.act > 2)
     return (int)cudaErrorInvalidValue;
-  const Args a{x, w, b, res, y, N, C, H, W, O, act,
-               reinterpret_cast<cudaStream_t>(stream)};
-  if (variant == kAuto) variant = conv3x3_pick(C, O, W, aligned16(a));
+  if (variant == kAuto)
+    variant = bf16 ? conv3x3_pick_bf16(a.C, a.O, a.W, aligned16(a))
+                   : conv3x3_pick(a.C, a.O, a.W, aligned16(a));
+  if ((variant >= kDirectBf16) != bf16) return (int)cudaErrorInvalidValue;
   switch (variant) {
     case kDirect: return (int)launch_direct(a);
     case kHead: return (int)launch_head(a);
     case kMmaSync: return (int)launch_mma_sync(a);
     case kWgmma: return (int)launch_wgmma(a);
+    case kDirectBf16: return (int)launch_direct_bf16(a);
+    case kHeadBf16: return (int)launch_head_bf16(a);
+    case kWgmmaBf16: return (int)launch_wgmma_bf16(a);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// w: the weights in the layout of the variant that runs (ops/conv3x3.py
+// packs them). variant 0 takes conv3x3_pick's choice; another value
+// forces that variant, for measurements, and fails on a shape it does not
+// take. Returns the cudaError_t of the launch.
+extern "C" int conv3x3_f32(const float* x, const void* w, const float* b,
+                           const float* res, float* y, int N, int C, int H,
+                           int W, int O, int act, int variant, void* stream) {
+  const conv3x3::Args a{x, w, b, res, y, N, C, H, W, O, act,
+                        reinterpret_cast<cudaStream_t>(stream)};
+  return launch_variant(a, variant, false);
+}
+
+// The bf16 instance: x, res and y bf16, b f32, w in the variant's layout
+// (bf16 for wgmma_bf16, f32 for the others); variants 5-7 or 0.
+extern "C" int conv3x3_bf16(const __nv_bfloat16* x, const void* w, const float* b,
+                            const __nv_bfloat16* res, __nv_bfloat16* y, int N, int C,
+                            int H, int W, int O, int act, int variant, void* stream) {
+  const conv3x3::Args a{x, w, b, res, y, N, C, H, W, O, act,
+                        reinterpret_cast<cudaStream_t>(stream)};
+  return launch_variant(a, variant, true);
 }

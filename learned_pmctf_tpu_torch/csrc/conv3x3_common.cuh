@@ -1,27 +1,34 @@
 // Shared pieces of the conv3x3 variants (Hopper, sm_90a): the launch
-// arguments, the fused f32 epilogue, cp.async helpers and the staging of
-// an activation tile with its zero halo into shared memory.
+// arguments, the fused f32 epilogue and the conversions of the bf16
+// instance, cp.async helpers and the staging of an activation tile with
+// its zero halo into shared memory.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace conv3x3 {
 
 enum Act { kNone = 0, kLeaky = 1, kTanh = 2 };
-enum Variant { kAuto = 0, kDirect = 1, kHead = 2, kMmaSync = 3, kWgmma = 4 };
+enum Variant {
+  kAuto = 0, kDirect = 1, kHead = 2, kMmaSync = 3, kWgmma = 4,
+  // the bf16 instance (bf16 x, residual and y; f32 bias and arithmetic)
+  kDirectBf16 = 5, kHeadBf16 = 6, kWgmmaBf16 = 7
+};
 
 constexpr int kThreads = 256;
 constexpr int kMaxSmem = 232448;  // 227 KB: the most one block can ask for
 
-// NCHW f32; `w` is in the layout of the variant that is launched.
+// NCHW; x, res and y are float, or __nv_bfloat16 for the bf16 variants;
+// `w` is in the layout of the variant that is launched; b is f32.
 struct Args {
-  const float* x;
-  const float* w;
+  const void* x;
+  const void* w;
   const float* b;
-  const float* res;  // may be null
-  float* y;
+  const void* res;  // may be null
+  void* y;
   int N, C, H, W, O, act;
   cudaStream_t stream;
 };
@@ -30,6 +37,9 @@ cudaError_t launch_direct(const Args& a);
 cudaError_t launch_head(const Args& a);
 cudaError_t launch_mma_sync(const Args& a);
 cudaError_t launch_wgmma(const Args& a);
+cudaError_t launch_direct_bf16(const Args& a);
+cudaError_t launch_head_bf16(const Args& a);
+cudaError_t launch_wgmma_bf16(const Args& a);
 // Output channels after padding to a width the tensor-core variants have
 // (0: none).
 int tc_padded_o(int O);
@@ -40,6 +50,7 @@ inline bool aligned16(const Args& a) {
 }
 // Whether the wgmma variant takes the shape (`aligned`: see aligned16).
 bool wgmma_takes(int C, int O, int W, bool aligned);
+bool wgmma_bf16_takes(int C, int O, int W, bool aligned);
 
 inline int sm_count() {
   static int sms = 0;
@@ -49,6 +60,19 @@ inline int sm_count() {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   return sms;
+}
+
+// Loads and stores of the element types: the arithmetic is f32 in every
+// variant, the bf16 instance rounds once, to nearest even, on the store.
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
 }
 
 __device__ __forceinline__ float activate(float v, int act) {

@@ -23,6 +23,13 @@
 //   read as broadcasts, three 16-byte loads a channel;
 // - bias, residual and activation are fused; outputs are coalesced rows.
 // Deterministic: a fixed summation order (chunk, channel, row, kx).
+//
+// "head_bf16" is the same kernel for the bf16 instance (bf16 x, residual
+// and y; f32 weights, bias and arithmetic; one rounding on the store). Its
+// inputs are half the bytes, but cp.async cannot convert, so a stage is
+// filled by plain 16-byte loads (8 pixels) converted to f32 into the same
+// window layout; the ring then only overlaps one warp's loads with
+// another's FMAs.
 
 #include "conv3x3_common.cuh"
 
@@ -40,10 +47,70 @@ constexpr int kStageFloats = kCC * kPlane;
 constexpr int kStages = 3;
 constexpr int kMaxC = 2048;            // weights: 48 bytes a channel
 
+// stage_acts for bf16 inputs: the same f32 window (interior at column 4,
+// halo columns 3 and 4+TW), filled by plain loads and converted. `vec`:
+// 16 bytes (8 pixels) a load, which needs W % 8 == 0 and an x on 16 bytes.
+template <int CC, int ROWS, int TW, int STRIDE, int PLANE>
+__device__ __forceinline__ void stage_acts_bf16(float* dst, const __nv_bfloat16* xn,
+                                                int c0, int C, int y0, int x0, int H,
+                                                int W, bool vec, int tid) {
+  constexpr int VPR = TW / 8;
+  static_assert((VPR & (VPR - 1)) == 0 && (CC & (CC - 1)) == 0, "powers of two");
+  const size_t plane = (size_t)H * W;
+  for (int i = tid; i < CC * ROWS * VPR; i += kThreads) {
+    const int v = i % VPR;
+    const int cc = (i / VPR) % CC;
+    const int r = i / (VPR * CC);
+    const int gy = y0 - 1 + r;
+    const int gx = x0 + 8 * v;
+    const int c = c0 + cc;
+    const bool row_ok = c < C && gy >= 0 && gy < H;
+    const __nv_bfloat16* s = xn + (row_ok ? (size_t)c * plane + (size_t)gy * W : 0);
+    float f[8];
+    if (vec) {
+      if (row_ok && gx < W) {
+        const uint4 q = *reinterpret_cast<const uint4*>(s + gx);
+        const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 p =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&words[e]));
+          f[2 * e] = p.x;
+          f[2 * e + 1] = p.y;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) f[e] = 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        f[e] = (row_ok && gx + e < W) ? __bfloat162float(s[gx + e]) : 0.f;
+    }
+    float4* d = reinterpret_cast<float4*>(dst + cc * PLANE + r * STRIDE + 4 + 8 * v);
+    d[0] = make_float4(f[0], f[1], f[2], f[3]);
+    d[1] = make_float4(f[4], f[5], f[6], f[7]);
+  }
+  for (int i = tid; i < CC * ROWS * 2; i += kThreads) {
+    const int side = i & 1;
+    const int cc = (i >> 1) % CC;
+    const int r = i / (2 * CC);
+    const int gy = y0 - 1 + r;
+    const int gx = side ? x0 + TW : x0 - 1;
+    const int c = c0 + cc;
+    const bool ok = c < C && gy >= 0 && gy < H && gx >= 0 && gx < W;
+    dst[cc * PLANE + r * STRIDE + (side ? 4 + TW : 3)] =
+        ok ? __bfloat162float(xn[(size_t)c * plane + (size_t)gy * W + gx]) : 0.f;
+  }
+}
+
+// T: float (cp.async staging) or __nv_bfloat16 (stage_acts_bf16) for x,
+// res and y; the weights are f32
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-conv3x3_head_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ b, const float* __restrict__ res,
-                    float* __restrict__ y, int N, int C, int H, int W, int act,
+conv3x3_head_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ b, const T* __restrict__ res,
+                    T* __restrict__ y, int N, int C, int H, int W, int act,
                     int vec) {
   extern __shared__ __align__(16) float smem[];
   float* w_s = smem + kStages * kStageFloats;  // [channel][12]: 9 taps, 3 unused
@@ -70,9 +137,14 @@ conv3x3_head_kernel(const float* __restrict__ x, const float* __restrict__ w,
   auto stage_next = [&]() {
     int n, ty, tx;
     walk.decode(p_tile, n, ty, tx);
-    stage_acts<kCC, kRows, kTW, kStride, kPlane>(
-        smem + p_stage * kStageFloats, x + (size_t)n * C * plane, p_chunk * kCC,
-        C, ty * kTH, tx * kTW, H, W, vec != 0, tid);
+    if constexpr (sizeof(T) == 4)
+      stage_acts<kCC, kRows, kTW, kStride, kPlane>(
+          smem + p_stage * kStageFloats, x + (size_t)n * C * plane, p_chunk * kCC,
+          C, ty * kTH, tx * kTW, H, W, vec != 0, tid);
+    else
+      stage_acts_bf16<kCC, kRows, kTW, kStride, kPlane>(
+          smem + p_stage * kStageFloats, x + (size_t)n * C * plane, p_chunk * kCC,
+          C, ty * kTH, tx * kTW, H, W, vec != 0, tid);
     if (++p_chunk == nchunks) {
       p_chunk = 0;
       p_tile += gridDim.x;
@@ -130,8 +202,8 @@ conv3x3_head_kernel(const float* __restrict__ x, const float* __restrict__ w,
         if (gx < W && gy < H) {
           const size_t o = (size_t)n * plane + (size_t)gy * W + gx;
           float v = acc[p] + bias;
-          if (res != nullptr) v += res[o];
-          y[o] = activate(v, act);
+          if (res != nullptr) v += to_float(res[o]);
+          y[o] = from_float<T>(activate(v, act));
         }
         acc[p] = 0.f;
       }
@@ -142,21 +214,29 @@ conv3x3_head_kernel(const float* __restrict__ x, const float* __restrict__ w,
   cp_async_wait<0>();
 }
 
-}  // namespace
-
-cudaError_t launch_head(const Args& a) {
+template <typename T>
+cudaError_t launch_head_t(const Args& a) {
   if (a.O != 1 || a.C > kMaxC) return cudaErrorInvalidValue;
   const int nchunks = (a.C + kCC - 1) / kCC;
   const int smem = (kStages * kStageFloats + nchunks * kCC * 12) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = conv3x3_head_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const TileWalk walk(a.N, a.H, a.W, kTH, kTW);
   const int grid = walk.total < sm_count() ? walk.total : sm_count();
-  const int vec = a.W % 4 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
-  conv3x3_head_kernel<<<grid, kThreads, smem, a.stream>>>(
-      a.x, a.w, a.b, a.res, a.y, a.N, a.C, a.H, a.W, a.act, vec);
+  // a vector load is 16 bytes: 4 f32 or 8 bf16 pixels
+  const int vec = a.W % (16 / (int)sizeof(T)) == 0 &&
+                  reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const float*>(a.w), a.b,
+      static_cast<const T*>(a.res), static_cast<T*>(a.y), a.N, a.C, a.H, a.W, a.act, vec);
   return cudaGetLastError();
 }
+
+}  // namespace
+
+cudaError_t launch_head(const Args& a) { return launch_head_t<float>(a); }
+cudaError_t launch_head_bf16(const Args& a) { return launch_head_t<__nv_bfloat16>(a); }
 
 }  // namespace conv3x3

@@ -230,7 +230,9 @@ cudaError_t launch_cfg(const Args& a) {
   const int grid = walk.total < sm_count() ? walk.total : sm_count();
   const int vec = a.W % 4 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
   kernel<<<grid, kThreads, K::SMEM_BYTES, a.stream>>>(
-      a.x, a.w, a.b, a.res, a.y, a.N, a.C, a.H, a.W, a.O, a.act, vec);
+      static_cast<const float*>(a.x), static_cast<const float*>(a.w), a.b,
+      static_cast<const float*>(a.res), static_cast<float*>(a.y), a.N, a.C, a.H, a.W,
+      a.O, a.act, vec);
   return cudaGetLastError();
 }
 

@@ -18,7 +18,7 @@ from ..ops.masks import checkerboard_masks
 from ..ops.quant import quant_ste, ste_round
 from ..ops.resample import nearest_upsample
 from .layers import (Conv2d, ContextResidual, DepthConvBlock, MaskedConv2d,
-                     leaky_relu)
+                     leaky_relu, net_boundary)
 
 
 class LSTM2D(nn.Module):
@@ -33,9 +33,11 @@ class LSTM2D(nn.Module):
         self.conv_hidden = Conv2d(hidden, hidden, 3)
 
     def forward(self, x, h, c):
-        xh = self.conv_in(x) + self.conv_hidden(h)
+        # the gates in f32 under the policy: the carried states feed the
+        # entropy parameter nets of all subbands
+        xh = net_boundary(self.conv_in(x) + self.conv_hidden(h))
         gate = torch.sigmoid(xh)
-        c = gate * c + gate * torch.tanh(xh)
+        c = gate * net_boundary(c) + gate * torch.tanh(xh)
         h = torch.sigmoid(xh) * torch.tanh(c)
         return h, c
 
@@ -202,7 +204,8 @@ class ContextFusionFourStep(nn.Module):
         else:
             feat = None
             params = self.y_hierarchical_prior_out(torch.zeros_like(like))
-        scales, means = params.chunk(2, dim=1)
+        # f32 heads under the policy: a bf16 ulp would coarsen the symbols
+        scales, means = net_boundary(params).chunk(2, dim=1)
         return feat, scales, means
 
     def spatial_params(self, x_hat_so_far, ctx_feat, step: int):
@@ -211,7 +214,7 @@ class ContextFusionFourStep(nn.Module):
         if ctx_feat is not None:
             y = y + ctx_feat
         params = getattr(self, f"y_spatial_prior_{step + 1}_out")(y)
-        scales, means = params.chunk(2, dim=1)
+        scales, means = net_boundary(params).chunk(2, dim=1)
         return scales, means
 
     def forward(self, x, context=None, prev_subband=None,

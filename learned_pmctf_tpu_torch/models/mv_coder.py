@@ -14,8 +14,9 @@ import torch.nn as nn
 
 from ..ops.masks import checkerboard_masks
 from ..ops.quant import lower_bound, quant_ste
-from .layers import (Conv2d, DepthConvBlock, DepthConvBlock4,
-                     ResidualBlockUpsample, ResidualBlockWithStride, SubpelConv)
+from .layers import (Conv2d, DepthConvBlock, DepthConvBlock4, LeakyReLU,
+                     ResidualBlockUpsample, ResidualBlockWithStride, SubpelConv,
+                     net_boundary)
 
 
 class MvEnc(nn.Module):
@@ -40,7 +41,8 @@ class MvEnc(nn.Module):
             out = self.adaptor_0(out)
         else:
             out = self.adaptor_1(torch.cat([out, context], dim=1))
-        return self.enc_3(out)
+        # net boundary: the latent is quantized downstream, f32 under the policy
+        return net_boundary(self.enc_3(out))
 
 
 class MvDec(nn.Module):
@@ -60,15 +62,18 @@ class MvDec(nn.Module):
     def forward(self, x, quant_step):
         feature = self.dec_1(x)
         out = self.dec_2(feature) * quant_step
-        return self.dec_3(out), feature
+        return net_boundary(self.dec_3(out)), net_boundary(feature)
 
 
 class HyperEncoder(nn.Sequential):
     def __init__(self, channels_n: int = 64, channels_in: int = 64):
         super().__init__(DepthConvBlock4(channels_in, channels_n),
                          Conv2d(channels_n, channels_n, 3, stride=2),
-                         nn.LeakyReLU(0.01),
+                         LeakyReLU(0.01),
                          Conv2d(channels_n, channels_n, 3, stride=2))
+
+    def forward(self, x):
+        return net_boundary(super().forward(x))  # z is rounded to symbols
 
 
 class HyperDecoder(nn.Sequential):
@@ -76,6 +81,9 @@ class HyperDecoder(nn.Sequential):
         super().__init__(ResidualBlockUpsample(channels_n, channels_n, 2),
                          ResidualBlockUpsample(channels_n, channels_n, 2),
                          DepthConvBlock4(channels_n, channels_out))
+
+    def forward(self, x):
+        return net_boundary(super().forward(x))
 
 
 # mask index per (step, channel quarter)
@@ -135,7 +143,8 @@ def four_part_prior_forward(y, common_params, adaptors: Sequence[Callable],
                         else y_hat_so_far + y_hat_curr)
         if step < 3:
             inp = torch.cat([y_hat_so_far, common_params], dim=1)
-            chunks = spatial_prior(adaptors[step](inp)).chunk(8, dim=1)
+            # f32 head: scales and means drive the symbol quantization
+            chunks = net_boundary(spatial_prior(adaptors[step](inp))).chunk(8, dim=1)
             scales_q, means_q = chunks[:4], chunks[4:]
 
     return (torch.cat(res_acc, dim=1), torch.cat(q_acc, dim=1),

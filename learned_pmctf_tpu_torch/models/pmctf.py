@@ -1,8 +1,10 @@
 """pMCTF-L video coder.
 
 Counterpart of learned_pmctf_tpu/models/pmctf.py with
-``spynet_luma=True``, f32, either warp (``warp_mode="exact"``, the
-reference's, or the opt-in separable ``"fast"``) and either LL coder
+``spynet_luma=True``: f32 or the bf16 activation policy (``act_bf16``,
+passed on to both pWave coders; models/layers.py), either warp
+(``warp_mode="exact"``, the reference's, or the separable ``"fast"``,
+clamped to +-``warp_max_disp``) and either LL coder
 (``ll_mode="fourstep"`` or the reference's ``"ar"``, for both pWave
 coders): two pWave coders for the temporal low/highpass bands, SpyNet
 motion, the MV autoencoder with its four-part prior, learned temporal
@@ -22,9 +24,9 @@ from ..entropy.bit_estimator import BitEstimator
 from ..entropy.distributions import laplace_bits
 from ..ops.resample import bilinear_downsample, bilinear_upsample
 from ..ops.quant import add_uniform_noise, quant_ste, ste_round
-from ..ops.warp import PMCTF_MAX_DISP, flow_warp, flow_warp_fast
+from ..ops.warp import flow_warp, flow_warp_fast
 from ..runtime import disable_tf32, resolve_device
-from .layers import Conv2d, DepthConvBlock, init_params
+from .layers import Conv2d, DepthConvBlock, init_params, net_boundary, policy_scope
 from .mv_coder import (HyperDecoder, HyperEncoder, MvDec, MvEnc,
                        four_part_prior_forward, separate_prior_enc_dec)
 from .pwave import PWave, interp_q_scale
@@ -44,12 +46,15 @@ class PMCTF(nn.Module):
                  quant_stage: bool = True, channel_mv: int = 64,
                  channel_n: int = 64, features: int = 112,
                  ar_features: int = 128, spynet_levels: int = 6,
-                 ll_mode: str = "fourstep", warp_mode: str = "exact"):
+                 ll_mode: str = "fourstep", warp_mode: str = "exact",
+                 warp_max_disp: int = 32, act_bf16: bool = False):
         super().__init__()
         if warp_mode not in ("exact", "fast"):
             raise ValueError(f"unknown warp_mode {warp_mode!r}")
         self.ll_mode = ll_mode
         self.warp_mode = warp_mode
+        self.warp_max_disp = warp_max_disp
+        self.act_bf16 = act_bf16
         self.dynamic_range = float(2 ** bitdepth - 1)
         self.lossy = lossy
         self.num_me_stages = n = num_me_stages
@@ -59,10 +64,11 @@ class PMCTF(nn.Module):
         c_mv, c_n = channel_mv, channel_n
 
         self.lp_coder = PWave(bitdepth, decomp_levels, lossy, features,
-                              ar_features, ll_mode)
+                              ar_features, ll_mode, act_bf16)
         self.hp_coder = PWave(bitdepth, decomp_levels, lossy, features,
-                              ar_features, ll_mode)
-        self.optic_flow = MESpynet(spynet_levels, warp_mode == "fast")
+                              ar_features, ll_mode, act_bf16)
+        self.optic_flow = MESpynet(spynet_levels, warp_mode == "fast",
+                                   warp_max_disp)
 
         def per_stage(make):
             return nn.ModuleList(make() for _ in range(n))
@@ -123,7 +129,8 @@ class PMCTF(nn.Module):
         else:
             mv_params = self.mv_y_prior_fusion_adaptor_1[me_num](
                 torch.cat([mv_params, ref_mv_y], dim=1))
-        return self.mv_y_prior_fusion[me_num](mv_params)
+        # f32 head: the quant step, scales and means are split from it
+        return net_boundary(self.mv_y_prior_fusion[me_num](mv_params))
 
     def _adaptors(self, me_num: int):
         return [getattr(self, f"mv_y_spatial_prior_adaptor_{k}")[me_num]
@@ -131,6 +138,7 @@ class PMCTF(nn.Module):
 
     # ---- motion ----------------------------------------------------------
 
+    @policy_scope
     def compute_and_code_motion(self, ref_frame, cur_frame, q_index, dpb,
                                 stage_idx: int = 0, me_downsample: int = 1,
                                 training: bool = False, noise=None):
@@ -195,6 +203,7 @@ class PMCTF(nn.Module):
 
     # ---- sub-graphs of the bitstream codec -------------------------------
 
+    @policy_scope
     def mv_latent_planes(self, ref_y, cur_y, dpb, stage_idx: int, q_index,
                          me_downsample: int = 1):
         """(mv_y, mv_z_hat): the latents only the encoder computes."""
@@ -203,6 +212,7 @@ class PMCTF(nn.Module):
                                       me_downsample)
         return mv_y, torch.round(mv_z)
 
+    @policy_scope
     def mv_prior_params(self, mv_z_hat, dpb, stage_idx: int):
         return self.mv_prior_param_decoder(mv_z_hat, dpb, self.me_index(stage_idx))
 
@@ -212,15 +222,17 @@ class PMCTF(nn.Module):
         _, q_dec, scales, means = separate_prior_enc_dec(mv_params)
         return q_dec, scales.chunk(4, dim=1), means.chunk(4, dim=1)
 
+    @policy_scope
     def mv_decode_spatial(self, y_hat_so_far, mv_params, stage_idx: int,
                           step: int):
         """(scales quarters, means quarters) of pass `step + 1`."""
         me_num = self.me_index(stage_idx)
         inp = torch.cat([y_hat_so_far, mv_params], dim=1)
         out = self.mv_y_spatial_prior[me_num](self._adaptors(me_num)[step](inp))
-        chunks = out.chunk(8, dim=1)
+        chunks = net_boundary(out).chunk(8, dim=1)
         return chunks[:4], chunks[4:]
 
+    @policy_scope
     def mv_decode_tail(self, mv_y_hat, stage_idx: int, q_index,
                        me_downsample: int = 1):
         """(mv_hat, mv_feature) from the decoded MV latent."""
@@ -245,9 +257,10 @@ class PMCTF(nn.Module):
 
     def _warp(self, x, mv):
         if self.warp_mode == "fast":
-            return flow_warp_fast(x, mv, PMCTF_MAX_DISP)
+            return flow_warp_fast(x, mv, self.warp_max_disp)
         return flow_warp(x, mv)
 
+    @policy_scope
     def forward_mctf(self, ref_frame, cur_frame, mv_hat, stage_idx: int = 0):
         """H_t = cur - P(warp(ref, mv)); L_t = ref + U(warp(H_t, -mv))."""
         tf = self.temporal_filtering[self.me_index(stage_idx)]
@@ -264,6 +277,7 @@ class PMCTF(nn.Module):
         l_t = ref_frame + inv_pred
         return l_t, h_t, pred, inv_pred
 
+    @policy_scope
     def inverse_mctf(self, l_t, h_t, mv_hat, stage_idx: int = 0,
                      downscale: bool = False):
         """Inverse temporal lifting; `downscale` halves the MVs for chroma."""
@@ -283,6 +297,7 @@ class PMCTF(nn.Module):
 
     # ---- one temporal stage ----------------------------------------------
 
+    @policy_scope
     def forward_one_stage(self, ref_frame, cur_frame, q_index, code_lt: bool,
                           dpb, mv_hat=None, stage_idx: int = 0,
                           me_downsample: int = 1, training: bool = False,

@@ -2,13 +2,18 @@
 
 Counterpart of learned_pmctf_tpu/models/postprocess.py:PostProcess. All
 15 of its 3x3 convs go through the conv3x3 kernel with bias, LeakyReLU
-and the skips fused, as the Pallas route there does.
+and the skips fused, as the Pallas route there does (PMCTF_PALLAS_POST=1).
+Under the bf16 activation policy (models/layers.py) the input, the
+weights and so the activations between convs are bf16, as that route
+casts them, and the kernel's bf16 instance runs every conv; the output
+goes back to f32 at the net's boundary. Unlike the Pallas route, the
+kernel also takes widths that are no multiple of 128 (chroma's 960).
 """
 
 import torch.nn as nn
 
 from ..ops.conv3x3 import conv3x3, conv3x3_plain
-from .layers import Conv2d, ResBlock
+from .layers import Conv2d, ResBlock, current_conv_dtype, net_boundary
 
 
 class PostProcess(nn.Module):
@@ -28,13 +33,18 @@ class PostProcess(nn.Module):
         self.use_kernel = True
 
     def forward(self, x):
-        conv = conv3x3 if self.use_kernel else conv3x3_plain
+        kernel = conv3x3 if self.use_kernel else conv3x3_plain
+        cdt = current_conv_dtype()
+
+        def conv(t, m, **kw):
+            w = m.weight if cdt is None else m.weight.to(cdt)
+            return kernel(t, w, m.bias, **kw)
+
         x = x.contiguous()
-        t = conv(x, self.conv1.weight, self.conv1.bias)
-        conv1 = t
+        t = conv1 = conv(x if cdt is None else x.to(cdt), self.conv1)
         for blk in self.resBlocks:
-            y = conv(t, blk.conv1.weight, blk.conv1.bias, act="leaky_relu")
-            t = conv(y, blk.conv2.weight, blk.conv2.bias, residual=t)
-        t = conv(t, self.conv2.weight, self.conv2.bias, residual=conv1)
-        t = conv(t, self.conv3.weight, self.conv3.bias)
-        return x + t
+            y = conv(t, blk.conv1, act="leaky_relu")
+            t = conv(y, blk.conv2, residual=t)
+        t = conv(t, self.conv2, residual=conv1)
+        t = conv(t, self.conv3)
+        return x + net_boundary(t)

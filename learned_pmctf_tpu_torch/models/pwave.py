@@ -10,7 +10,10 @@ synthesis and PostProcess. ``forward`` is the estimate path, and with
 ``training=True`` the training forward (straight-through rounding); the
 bitstream codec (codec/image_codec.py) calls ``quantize_planes``,
 ``ctx_init``/``ctx_step``, ``ar_params``, the four-step modules'
-``hier_params`` / ``spatial_params`` and ``reconstruct``.
+``hier_params`` / ``spatial_params`` (through ``fusion_hier`` /
+``fusion_spatial``) and ``reconstruct``. With ``act_bf16`` these run
+under the bf16 activation policy (models/layers.py), as the JAX
+package's do; the codec's stream entry points force f32.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch.nn as nn
 from ..entropy.distributions import laplace_bits
 from ..ops.quant import quant_ste, ste_clamp
 from .context import ContextFusionFourStep, ContextFusionSubband, SubbandContext
+from .layers import policy_scope
 from .postprocess import PostProcess
 from .wavelet import LiftingScheme2D
 
@@ -42,11 +46,13 @@ class PWave(nn.Module):
 
     def __init__(self, bitdepth: int = 8, decomp_levels: int = 4,
                  lossy: bool = True, features: int = 112,
-                 ar_features: int = 128, ll_mode: str = "fourstep"):
+                 ar_features: int = 128, ll_mode: str = "fourstep",
+                 act_bf16: bool = False):
         super().__init__()
         if ll_mode not in ("fourstep", "ar"):
             raise ValueError(f"unknown ll_mode {ll_mode!r}")
         self.ll_mode = ll_mode
+        self.act_bf16 = act_bf16
         self.decomp_levels = decomp_levels
         self.lossy = lossy
         self.dynamic_range = float(2 ** bitdepth)
@@ -118,6 +124,7 @@ class PWave(nn.Module):
     def dequantize_subband(self, subband, q_scale):
         return subband / q_scale if self.lossy else subband
 
+    @policy_scope
     def forward(self, x, q_index=None, qp_scale=None, training: bool = False):
         """Forward with entropy-estimated rate (no bitstream): hard
         rounding, or with ``training`` straight-through rounding.
@@ -170,6 +177,7 @@ class PWave(nn.Module):
 
     # ---- sub-graphs of the bitstream codec -------------------------------
 
+    @policy_scope
     def quantize_planes(self, x, q_index=None, qp_scale=None):
         """Quantized (continuous, pre-round) subbands in coding order: the
         teacher inputs of the codec's encode-as-decode replay."""
@@ -186,15 +194,33 @@ class PWave(nn.Module):
         b, _, h, w = like.shape
         return self.context_prediction.init_states(b, h, w, like)
 
+    @policy_scope
     def ctx_step(self, subband, states, upsample_level=None):
         return self.context_prediction.step(subband, states, upsample_level)
 
+    def fusion(self, key: str):
+        """The entropy model of subband `key` ("ll" or "<level>_<band>")."""
+        if key == "ll":
+            return self.context_fusion[self.decomp_levels - 1]["ll"]
+        lvl, band = key.split("_")
+        return self.context_fusion[int(lvl)][band]
+
+    @policy_scope
+    def fusion_hier(self, key: str, context, prev_subband, like):
+        return self.fusion(key).hier_params(context, prev_subband, like=like)
+
+    @policy_scope
+    def fusion_spatial(self, key: str, x_hat_so_far, ctx_feat, step: int):
+        return self.fusion(key).spatial_params(x_hat_so_far, ctx_feat, step)
+
+    @policy_scope
     def ar_params(self, partial_rec):
         """(scales, means) of the AR LL model on a (partial) reconstruction."""
         params = self.context_fusion[self.decomp_levels - 1]["ll"](partial_rec)
         scales, means = params.chunk(2, dim=1)
         return scales, means
 
+    @policy_scope
     def reconstruct(self, subbands_hat, q_index=None, qp_scale=None):
         """Dequantize + synthesis + PostProcess (the decode tail)."""
         q_scale, q_scale_ll = self.current_q(q_index, qp_scale)

@@ -4,8 +4,8 @@ Counterpart of learned_pmctf_tpu/models/spynet.py with luma_mode=True:
 the net runs on 1-channel planes, so conv1 takes 4 inputs (current,
 warped reference, 2 flow channels), the reference's RGB slices summed.
 ``fast_warp`` warps inside the pyramid with the separable
-``flow_warp_fast``, clamped as PMCTF clamps it (PMCTF wires it to its
-``warp_mode``).
+``flow_warp_fast``, clamped to +-``fast_warp_disp`` (PMCTF wires both to
+its ``warp_mode`` and ``warp_max_disp``).
 """
 
 import torch
@@ -13,8 +13,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.resample import avg_pool2, bilinear_upsample
-from ..ops.warp import PMCTF_MAX_DISP, flow_warp, flow_warp_fast
-from .layers import Conv2d
+from ..ops.warp import flow_warp, flow_warp_fast
+from .layers import Conv2d, net_boundary
 
 
 class MEBasic(nn.Module):
@@ -33,21 +33,23 @@ class MEBasic(nn.Module):
         x = F.relu(self.conv2(x))
         x = F.relu(self.conv3(x))
         x = F.relu(self.conv4(x))
-        return self.conv5(x)
+        return net_boundary(self.conv5(x))
 
 
 class MESpynet(nn.Module):
     """Pyramid flow from im1 (current) to im2 (reference), both (B,1,H,W)."""
 
-    def __init__(self, levels: int = 6, fast_warp: bool = False):
+    def __init__(self, levels: int = 6, fast_warp: bool = False,
+                 fast_warp_disp: int = 32):
         super().__init__()
         self.levels = levels
         self.fast_warp = fast_warp
+        self.fast_warp_disp = fast_warp_disp
         self.moduleBasic = nn.ModuleList(MEBasic(4) for _ in range(levels))
 
     def _warp(self, im, flow):
         if self.fast_warp:
-            return flow_warp_fast(im, flow, PMCTF_MAX_DISP)
+            return flow_warp_fast(im, flow, self.fast_warp_disp)
         return flow_warp(im, flow)
 
     def forward(self, im1, im2):

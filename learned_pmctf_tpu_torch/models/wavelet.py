@@ -2,7 +2,9 @@
 
 Counterpart of learned_pmctf_tpu/models/wavelet.py. The scale_l/scale_h
 and scale_p/scale_u gains are registered parameters here, as they are
-flax params there. The fixed-tap skip convs stay f32.
+flax params there. The fixed-tap skip convs carry the full-magnitude
+signal and are exempt from the bf16 activation policy (a bf16 ulp at
+|x| ~ 255 is a whole pixel step); the learned P/U nets return f32.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ def _skip_conv(in_ch: int, taps):
     """Depthwise 3x1 conv initialised to the wavelet taps."""
     w = [[[[t] for t in taps]]] * in_ch  # (C,1,3,1)
     return Conv2d(in_ch, in_ch, (3, 1), padding=0, groups=in_ch,
-                  init_taps=tuple(map(tuple, w)))
+                  init_taps=tuple(map(tuple, w)), policy_exempt=True)
 
 
 class LearnedLifting1D(nn.Module):

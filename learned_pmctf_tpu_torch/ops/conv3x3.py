@@ -30,6 +30,22 @@ The C side picks one of four variants from the shape (``variants_for``):
 All are deterministic (fixed summation order, no atomics) and fuse bias,
 residual and activation into an f32 epilogue.
 
+The TPU kernel also runs with bf16 operands: under the JAX package's
+activation policy (``act_bf16``) PostProcess casts x, the weights and the
+residual to bf16 and the Pallas kernel multiplies bf16 by bf16 into f32
+accumulators, adds the f32 bias and residual in f32 and writes bf16.
+``conv3x3`` takes that instance too (bf16 x, w and residual, f32 b; bf16
+out), forward only, on three more variants:
+
+- ``wgmma_bf16`` (C % 16 == 0, O % 8 == 0, O <= 64, W % 8 == 0): the
+  64->64 convs, one ``wgmma.m64nNk16`` bf16 product a K step (bf16 is the
+  tensor cores' own input: no split), 989 TFLOP/s dense on an H100 SXM;
+  the weights packed by ``pack_weights_bf16``;
+- ``head_bf16`` (O == 1) and ``direct_bf16`` (the rest, C == 1 among
+  them): ``head_o1`` and ``direct_f32`` reading and writing bf16, with
+  f32 weights (the bf16 weights upcast, exactly) and f32 arithmetic; a
+  product of two bf16 values is exact in f32.
+
 ``conv3x3`` launches a kernel for CUDA tensors, or raises; it runs the
 plain version ``conv3x3_plain`` only for tensors on the CPU. With grad
 mode on and an input that requires grad it goes through
@@ -40,6 +56,9 @@ through the kernels again (a 64->64 conv's is 64->64, a 1->64 conv's is
 Pallas kernel had no backward (it was inference-only), and the weight
 gradient is stock PyTorch, as XLA computed it for the JAX package.
 ``conv3x3_split_plain`` is the plain emulation of the three-product sum.
+The plain version of the bf16 instance upcasts to f32, convolves and
+applies the f32 epilogue there, and rounds once to bf16, as the Pallas
+kernel does.
 The shared library is built with nvcc from the repo's sources at first
 use into ``learned_pmctf_tpu_torch/build/`` (one nvcc a source, run
 together), and rebuilt when a source is newer.
@@ -70,10 +89,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 ACTS = {None: 0, "leaky_relu": 1, "tanh": 2}
 # conv3x3::Variant in csrc/conv3x3_common.cuh, and the weight layout each reads
 VARIANTS = {"direct_f32": 1, "head_o1": 2, "mma_sync_3xtf32": 3,
-            "wgmma_3xtf32": 4}
+            "wgmma_3xtf32": 4, "direct_bf16": 5, "head_bf16": 6,
+            "wgmma_bf16": 7}
+BF16_VARIANTS = ("direct_bf16", "head_bf16", "wgmma_bf16")
 _VARIANT_NAMES = {v: k for k, v in VARIANTS.items()}
 _LAYOUT_OF = {"direct_f32": "direct", "head_o1": "oihw",
-              "mma_sync_3xtf32": "mma_sync", "wgmma_3xtf32": "wgmma"}
+              "mma_sync_3xtf32": "mma_sync", "wgmma_3xtf32": "wgmma",
+              "direct_bf16": "direct", "head_bf16": "oihw",
+              "wgmma_bf16": "wgmma_bf16"}
 
 _lib = None
 _lock = threading.Lock()
@@ -138,8 +161,10 @@ def _load():
             lib.conv3x3_f32.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                                         + [ctypes.c_void_p])
             lib.conv3x3_f32.restype = ctypes.c_int
-            for fn, n in ((lib.conv3x3_pick, 4), (lib.conv3x3_takes, 5),
-                          (lib.conv3x3_padded_o, 1)):
+            lib.conv3x3_bf16.argtypes = lib.conv3x3_f32.argtypes
+            lib.conv3x3_bf16.restype = ctypes.c_int
+            for fn, n in ((lib.conv3x3_pick, 4), (lib.conv3x3_pick_bf16, 4),
+                          (lib.conv3x3_takes, 5), (lib.conv3x3_padded_o, 1)):
                 fn.argtypes = [ctypes.c_int] * n
                 fn.restype = ctypes.c_int
             _lib = lib
@@ -200,11 +225,46 @@ def unpack_weights(pack, layout, o, c):
     return parts[0].contiguous(), parts[1].contiguous()
 
 
+# K index k of a 16-channel chunk -> its channel in ``pack_weights_bf16``.
+# Thread t of a wgmma A fragment holds k = 2t, 2t+1, 2t+8, 2t+9; they are
+# channels t, t+4, t+8, t+12, so that a fragment load reads four channel
+# planes of the window that lie 24 banks apart (csrc/conv3x3_wgmma.cu).
+BF16_K_CHANNEL = tuple((k % 2) * 4 + (k % 8) // 2 + 8 * (k // 8) for k in range(16))
+
+
+def pack_weights_bf16(w, o_pad=None):
+    """OIHW bf16 weights laid out for ``wgmma_bf16``'s B tiles, as one flat
+    bf16 tensor: [chunk of 16 channels][tap][k half][n-tile of 8 outputs]
+    [output][8 k], the K-major core matrices (8 outputs x 16 bytes) of an
+    unswizzled shared-memory descriptor, with k -> channel as
+    ``BF16_K_CHANNEL``. Outputs from O up to ``o_pad`` are zero."""
+    o, c = w.shape[:2]
+    o_pad = o if o_pad is None else o_pad
+    if c % 16 or o_pad % 8 or o_pad < o:
+        raise ValueError(f"cannot pack ({o}, {c}) weights to {o_pad} outputs: "
+                         "C must be a multiple of 16, the padded O of 8")
+    wk = F.pad(w.reshape(o, c, 9), (0, 0, 0, 0, 0, o_pad - o))
+    wk = wk.reshape(o_pad, c // 16, 16, 9)[:, :, list(BF16_K_CHANNEL)]
+    wk = wk.reshape(o_pad // 8, 8, c // 16, 2, 8, 9).permute(2, 5, 3, 0, 1, 4)
+    return wk.reshape(-1).contiguous()
+
+
+def unpack_weights_bf16(pack, o, c):
+    """Inverse of ``pack_weights_bf16``: the (O, C, 3, 3) weights."""
+    o_pad = pack.numel() // (9 * c)
+    wk = pack.reshape(c // 16, 9, 2, o_pad // 8, 8, 8).permute(3, 4, 0, 2, 5, 1)
+    wk = wk.reshape(o_pad, c // 16, 16, 9)
+    out = torch.empty_like(wk)
+    out[:, :, list(BF16_K_CHANNEL)] = wk
+    return out.reshape(o_pad, c, 3, 3)[:o].contiguous()
+
+
 def packed_weights(w, layout, o_pad=None):
     """``w`` in a variant's layout, cached on the tensor ``w`` itself and
     keyed on its storage and version: a second call packs nothing, an
-    in-place update (an optimizer step, ``load_state_dict``) repacks."""
-    if layout == "oihw":
+    in-place update (an optimizer step, ``load_state_dict``) repacks.
+    The CUDA-core variants read f32 weights: bf16 ones are upcast."""
+    if layout == "oihw" and w.dtype == torch.float32:
         return w
     key = (w.data_ptr(), w._version, w.device, o_pad)
     # under the lock: threads that code streams at once share the weights
@@ -215,7 +275,11 @@ def packed_weights(w, layout, o_pad=None):
             return hit[1]
         with torch.no_grad():
             if layout == "direct":  # (C, 3, 3, O): a chunk's weights are one run
-                pack = w.detach().permute(1, 2, 3, 0).contiguous()
+                pack = w.detach().permute(1, 2, 3, 0).float().contiguous()
+            elif layout == "oihw":
+                pack = w.detach().float().contiguous()
+            elif layout == "wgmma_bf16":
+                pack = pack_weights_bf16(w.detach(), o_pad)
             else:
                 pack = pack_weights(w.detach(), layout, o_pad)
         packed_weights.packs += 1
@@ -227,7 +291,13 @@ packed_weights.packs = 0
 
 
 def conv3x3_plain(x, w, b, act=None, residual=None):
-    """Plain PyTorch version: F.conv2d plus the same f32 epilogue."""
+    """Plain PyTorch version: F.conv2d plus the same f32 epilogue. For
+    bf16 operands: upcast, all of it in f32, one rounding to bf16 at the
+    end (the Pallas kernel's arithmetic)."""
+    if x.dtype == torch.bfloat16:
+        y = conv3x3_plain(x.float(), w.float(), b.float(), act,
+                          None if residual is None else residual.float())
+        return y.to(torch.bfloat16)
     return _epilogue(F.conv2d(x, w, b, padding=1), act, residual)
 
 
@@ -271,13 +341,16 @@ def _check(x, w, b, act, residual):
     if residual is not None and tuple(residual.shape) != (n, o, h, wd):
         raise ValueError(f"residual {tuple(residual.shape)} must be "
                          f"{(n, o, h, wd)}")
+    # f32 throughout, or the bf16 instance: bf16 x, w and residual, f32 b
+    want = x.dtype if x.dtype in (torch.float32, torch.bfloat16) else torch.float32
     for name, t in (("x", x), ("w", w), ("b", b), ("residual", residual)):
         if t is None:
             continue
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        dtype = torch.float32 if name == "b" else want
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype} (x is {x.dtype}), got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
@@ -289,13 +362,18 @@ def _launch(x, w, b, act, residual, variant):
     lib = _load()
     n, c, h, wd = x.shape
     o = w.shape[0]
-    y = torch.empty((n, o, h, wd), dtype=torch.float32, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    y = torch.empty((n, o, h, wd), dtype=x.dtype, device=x.device)
     aligned = all(t is None or t.data_ptr() % 16 == 0 for t in (x, residual, y))
-    name = variant or _VARIANT_NAMES[lib.conv3x3_pick(c, o, wd, aligned)]
+    pick = lib.conv3x3_pick_bf16 if bf16 else lib.conv3x3_pick
+    name = variant or _VARIANT_NAMES[pick(c, o, wd, aligned)]
+    if (name in BF16_VARIANTS) != bf16:
+        raise TypeError(f"variant {name} does not take {x.dtype} tensors")
     wk = packed_weights(w, _LAYOUT_OF[name], lib.conv3x3_padded_o(o))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.conv3x3_f32(
+        launch = lib.conv3x3_bf16 if bf16 else lib.conv3x3_f32
+        rc = launch(
             x.data_ptr(), wk.data_ptr(), b.data_ptr(),
             residual.data_ptr() if residual is not None else None,
             y.data_ptr(), n, c, h, wd, o, ACTS[act], VARIANTS[name], stream)
@@ -351,6 +429,10 @@ class Conv3x3Function(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, b, residual, act):
+        if x.dtype != torch.float32:
+            # the bf16 instance is the inference policy's, as the Pallas
+            # kernel is inference-only
+            raise TypeError(f"conv3x3 has no gradient for {x.dtype} inputs")
         y = _forward(x, w, b, act, residual)
         ctx.act = act
         ctx.save_for_backward(x, w, y)
@@ -382,10 +464,12 @@ class Conv3x3Function(torch.autograd.Function):
 def conv3x3(x, w, b, act=None, residual=None):
     """act(conv3x3(x, w) + b [+ residual]) with stride 1, 'same' zero pad.
 
-    x (N,C,H,W), w (O,C,3,3), b (O,), residual (N,O,H,W); f32, contiguous.
+    x (N,C,H,W), w (O,C,3,3), b (O,), residual (N,O,H,W); contiguous, all
+    f32, or bf16 x, w and residual with an f32 b (bf16 out, forward only).
     act: None | 'leaky_relu' (slope 0.2) | 'tanh'. With grad mode on and an
-    input that requires grad it goes through ``Conv3x3Function``; otherwise
-    it launches the kernel and records nothing.
+    input that requires grad it goes through ``Conv3x3Function`` (which
+    raises for bf16); otherwise it launches the kernel and records
+    nothing.
     """
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, b, residual)):
@@ -397,14 +481,17 @@ conv3x3.launches = 0
 conv3x3.by_variant = {}
 
 
-def variants_for(c: int, o: int, width: int) -> list:
+def variants_for(c: int, o: int, width: int, dtype=torch.float32) -> list:
     """The variants that take C input and O output channels on rows of
-    ``width`` pixels (of a tensor aligned to 16 bytes); the first is the
-    one ``conv3x3`` launches."""
+    ``width`` pixels (of a tensor aligned to 16 bytes) in `dtype`; the
+    first is the one ``conv3x3`` launches."""
     lib = _load()
-    first = _VARIANT_NAMES[lib.conv3x3_pick(c, o, width, 1)]
+    bf16 = dtype == torch.bfloat16
+    pick = lib.conv3x3_pick_bf16 if bf16 else lib.conv3x3_pick
+    first = _VARIANT_NAMES[pick(c, o, width, 1)]
     return [first] + [name for name, v in VARIANTS.items()
-                      if name != first and lib.conv3x3_takes(v, c, o, width, 1)]
+                      if name != first and (name in BF16_VARIANTS) == bf16
+                      and lib.conv3x3_takes(v, c, o, width, 1)]
 
 
 def conv3x3_variant(name, x, w, b, act=None, residual=None):

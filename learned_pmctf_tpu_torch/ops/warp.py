@@ -32,10 +32,6 @@ def _clip(x, lo: float, hi: float):
     return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
 
 
-# the clamp PMCTF gives the fast warp (the JAX PMCTF's warp_max_disp)
-PMCTF_MAX_DISP = 32
-
-
 def flow_warp_fast(feature, flow, max_disp: int = 64):
     """The JAX package's separable warp, with the same numbers.
 

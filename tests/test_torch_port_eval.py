@@ -264,8 +264,18 @@ def test_cli_write_stream_matches_jax_cli(tmp_path, monkeypatch):
     assert log["avg_p_encoding_time_ms"] > 0 and log["avg_p_decoding_time_ms"] > 0
 
 
+def test_cli_fast_warp_matches_jax_cli(tmp_path, monkeypatch):
+    """--warp_mode fast (the JAX CLI takes it, test_pmctf_flex.py:77):
+    the port's CLI against the JAX CLI driven with the port's fast-warp
+    codec."""
+    codec, port = _run_both(tmp_path, monkeypatch,
+                            ["--q_index", "10", "--warp_mode", "fast"], [10])
+    assert codec.model.warp_mode == "fast"
+    assert codec.model.optic_flow.fast_warp
+
+
 @pytest.mark.parametrize("flag", [["--q_batch"], ["--seq_batch", "2"], ["--shard_q"],
-                                  ["--warp_mode", "fast"], ["--lossless"]])
+                                  ["--lossless"]])
 def test_cli_refuses_what_is_not_ported(flag, capsys):
     with pytest.raises(SystemExit):
         flex.parse_args(SMALL_ARGS + flag)
