@@ -85,13 +85,17 @@ exits non-zero:
 
 18. kernel_bf16 (run after phase 3): the bf16 instance of the kernel (act_bf16's operands:
    bf16 x, weights and residual, f32 bias, bf16 out) at the main path's
-   six shapes: each bf16 variant against its bf16 plain version (one bf16
-   ulp plus 1e-5 of the largest output, at most 1e-3 of the elements
-   differing), against float64 on the bf16-rounded operands (half a bf16
-   ulp plus 1e-5 of the largest output), launched twice for bit-equality,
-   timed beside its plain version, one cuDNN bf16 F.conv2d call and its
-   bound (bf16 bytes over the memory rate, operations over the dense bf16
-   rate); ptxas' registers and spills of the bf16 kernels;
+   six shapes and the chroma 64->1, then two ragged shapes off the path
+   (a height that is no multiple of the tiles, a right edge inside a
+   tile) for wgmma_bf16 and head_bf16 and a 128->64 conv (wgmma_bf16's
+   weights in two loads): each bf16 variant against its
+   bf16 plain version (one bf16 ulp plus 1e-5 of the largest output, at
+   most 1e-3 of the elements differing), against float64 on the
+   bf16-rounded operands (half a bf16 ulp plus 1e-5 of the largest
+   output), launched twice for bit-equality, timed beside its plain
+   version, one cuDNN bf16 F.conv2d call and its bound (bf16 bytes over
+   the memory rate, operations over the dense bf16 rate); ptxas'
+   registers, static shared memory and spills of the bf16 kernels;
 19. bench_small_reference: the small model's GOP-4 in bench.py's
    configuration (fast warp, act_bf16) at 64x64 on the card against the
    CPU: max |card - CPU| <= 0.25 max |card bf16 - card f32| on the bits
@@ -104,6 +108,12 @@ exits non-zero:
    profiled by layer, with the device's idle share.
 Phase 15 also times the stage-6 GOP-4 step with the fast warp (the
 trainer's default, cli/train_pmctf.py), with its idle share.
+
+``python3 chip_smoke.py --kernels`` runs phases 1-3 and 18 alone, and
+``python3 chip_smoke.py --kernels --ab DIR`` then times the variants of
+both kernel phases' main-path shapes against those of the checkout at
+DIR (another commit of this repo, built into DIR's own build directory),
+in turns: DIR's, this tree's, this tree's, DIR's, on the same inputs.
 
 Then it prints the variants the main path did not take, the kernels line
 (one entry a variant a path launched; ``launches`` counts the estimate
@@ -184,9 +194,15 @@ def phase_device():
 
 
 def parse_ptxas(log):
-    """ptxas -v output -> one entry a kernel: registers and spill bytes."""
-    entries, name = [], None
+    """ptxas -v output -> one entry a kernel: registers, static shared
+    memory, spill bytes and ptxas' performance warnings (C75xx: wgmma
+    serialized)."""
+    entries, name, warnings = [], None, {}
     for line in log.splitlines():
+        m = re.search(r"\((C75\d\d)\) Potential Performance Loss.*function '(\w+)'", line)
+        if m:
+            warnings.setdefault(m.group(2), []).append(m.group(1))
+            continue
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
@@ -201,6 +217,10 @@ def parse_ptxas(log):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             entries[-1]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            entries[-1]["static_smem_bytes"] = int(m.group(1)) if m else 0
+    for e in entries:
+        e["perf_warnings"] = warnings.get(e["kernel"], [])
     return entries
 
 
@@ -303,12 +323,12 @@ def measure_conv(label, n, c, o, hh, ww, act, res, g):
     return row
 
 
-def phase_kernel():
+def f32_cases():
     """The six shapes of the main path, then two shapes the main path does
     not send to the kernel yet (the four-step priors' 112 and 128
     channels at the level-1 subband plane), measured for the next slice."""
     h, w = LUMA
-    cases = [  # (label, n, c, o, h, w, act, residual)
+    return [  # (label, n, c, o, h, w, act, residual)
         ("luma 64->64 leaky_relu", 1, 64, 64, h, w, "leaky_relu", False),
         ("luma 64->64 residual", 1, 64, 64, h, w, None, True),
         ("luma 1->64", 1, 1, 64, h, w, None, False),
@@ -320,8 +340,11 @@ def phase_kernel():
         ("subband 128->128 leaky_relu (off the main path)", 1, 128, 128,
          h // 2, w // 2, "leaky_relu", False),
     ]
+
+
+def phase_kernel():
     g = torch.Generator(device="cuda").manual_seed(0)
-    rows = [measure_conv(*case, g) for case in cases]
+    rows = [measure_conv(*case, g) for case in f32_cases()]
     torch.cuda.empty_cache()
     return rows
 
@@ -391,24 +414,95 @@ def measure_conv_bf16(label, n, c, o, hh, ww, act, res, g):
     return row
 
 
-def phase_kernel_bf16(ptxas):
-    """The bf16 instance at the main path's six shapes."""
+def bf16_cases():
+    """The bf16 instance's main-path shapes: the six of phase 3 and the
+    chroma 64->1 (the bench's chroma PostProcess)."""
     h, w = LUMA
-    cases = [
+    return [
         ("luma 64->64 leaky_relu", 1, 64, 64, h, w, "leaky_relu", False),
         ("luma 64->64 residual", 1, 64, 64, h, w, None, True),
         ("luma 1->64", 1, 1, 64, h, w, None, False),
         ("luma 64->1", 1, 64, 1, h, w, None, False),
         ("chroma 64->64 leaky_relu", 2, 64, 64, h // 2, w // 2, "leaky_relu", False),
         ("chroma 64->64 residual", 2, 64, 64, h // 2, w // 2, None, True),
+        ("chroma 64->1", 2, 64, 1, h // 2, w // 2, None, False),
     ]
+
+
+# off the path: a height no multiple of the tiles (4 and 8 rows), a right
+# edge inside a tile (64 and 128 pixels), with a residual and with tanh;
+# and 128 input channels (wgmma_bf16 loads its weights 64 at a time)
+BF16_RAGGED = [
+    ("ragged 2x64x75x200 64->64 residual", 2, 64, 64, 75, 200, None, True),
+    ("ragged 1x64x37x136 64->64 tanh", 1, 64, 64, 37, 136, "tanh", False),
+    ("ragged 2x64x75x200 64->1 residual", 2, 64, 1, 75, 200, None, True),
+    ("ragged 1x64x37x136 64->1 tanh", 1, 64, 1, 37, 136, "tanh", False),
+    ("128 channels 1x128x21x72 128->64 residual", 1, 128, 64, 21, 72, "leaky_relu", True),
+]
+
+
+def bf16_kernels(ptxas):
+    """The ptxas entries of the bf16 instance's kernels."""
+    return [e for e in ptxas if "bf16" in e["kernel"] or "bfloat16" in e["kernel"]]
+
+
+def phase_kernel_bf16(ptxas):
+    """The bf16 instance at its main-path shapes, then the ragged ones."""
     g = torch.Generator(device="cuda").manual_seed(0)
-    rows = [measure_conv_bf16(*case, g) for case in cases]
-    emit({"phase": "kernel_bf16_ptxas",
-          "kernels": [e for e in ptxas if "Bf16" in e["kernel"]
-                      or "nv_bfloat16" in e["kernel"]]})
+    rows = [measure_conv_bf16(*case, g) for case in bf16_cases() + BF16_RAGGED]
+    emit({"phase": "kernel_bf16_ptxas", "kernels": bf16_kernels(ptxas)})
     torch.cuda.empty_cache()
     return rows
+
+
+def load_conv3x3(root, name):
+    """ops/conv3x3.py of the checkout at `root` as the module `name`: it
+    builds its own sources into `root`'s build directory."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(root, "learned_pmctf_tpu_torch", "ops", "conv3x3.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_ab(other_root):
+    """The variant each main-path shape takes, in f32 and bf16, timed as
+    built from the checkout at `other_root` ("other") and from this tree
+    ("this") on the same inputs, in turns: other, this, this, other. An
+    f32 variant must give the same bits from both."""
+    from learned_pmctf_tpu_torch.ops import conv3x3 as this
+    other = load_conv3x3(other_root, "other_conv3x3")
+    ptxas = parse_ptxas(other.build(force=True))
+    emit({"phase": "ab_build", "other": other_root,
+          "other_ptxas": bf16_kernels(ptxas)})
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cases = ([(case, torch.float32) for case in f32_cases()[:6]]
+             + [(case, torch.bfloat16) for case in bf16_cases()])
+    for (label, n, c, o, hh, ww, act, res), dtype in cases:
+        x = torch.randn(n, c, hh, ww, device="cuda", generator=g).to(dtype)
+        wt = (torch.randn(o, c, 3, 3, device="cuda", generator=g) / (3 * c ** 0.5)).to(dtype)
+        b = torch.randn(o, device="cuda", generator=g) * 0.1
+        r = torch.randn(n, o, hh, ww, device="cuda", generator=g).to(dtype) if res else None
+        variant = this.variants_for(c, o, ww, dtype)[0]
+        # each module caches its own pack on the weight tensor: one each
+        runs = {name: (lambda m=m, w=w: m.conv3x3_variant(variant, x, w, b, act=act,
+                                                          residual=r))
+                for name, m, w in (("other", other, wt.clone()), ("this", this, wt))}
+        outs = {name: run() for name, run in runs.items()}
+        same = torch.equal(outs["other"], outs["this"])
+        if dtype == torch.float32 and not same:
+            raise AssertionError(f"ab {label} {variant}: the f32 variant changed its bits")
+        times = {"other": [], "this": []}
+        for name in ("other", "this", "this", "other"):
+            times[name].append(cuda_ms(runs[name]))
+        emit({"phase": "ab", "shape": label, "dtype": str(dtype).split(".")[-1],
+              "variant": variant, "other_ms": times["other"], "this_ms": times["this"],
+              "same_bits": same, "max_abs_diff": float(
+                  (outs["other"].float() - outs["this"].float()).abs().max()),
+              **conv_bound(n, c, o, hh, ww, res, variant)})
+        del outs
+    torch.cuda.empty_cache()
 
 
 def synthetic_gop(n, h, w, device, seed=0):
@@ -625,14 +719,14 @@ def phase_profile(model, luma, chroma, phase="profile"):
     kernels, busy_ms = device_kernels(prof)
     # a ctypes launch is no torch op, so the profiler ties the conv3x3
     # kernel to no range; PostProcess is its only caller
-    by_layer["postprocess (conv3x3)"] += sum(
-        e.self_device_time_total for e in kernels
-        if "conv3x3" in e.key and "_kernel" in e.key) / 1e3
+    conv_ms = {e.key[:100]: e.self_device_time_total / 1e3 for e in kernels
+               if "conv3x3" in e.key and "_kernel" in e.key}
+    by_layer["postprocess (conv3x3)"] += sum(conv_ms.values())
     by_layer["other"] = busy_ms - sum(by_layer.values())
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
     emit({"phase": phase, "gop": GOP, "wall_ms_profiled": wall_ms,
           "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms,
-          "device_ms_by_layer": by_layer,
+          "device_ms_by_layer": by_layer, "conv3x3_kernels_ms": conv_ms,
           "top_device_ops_ms": {e.key[:80]: e.self_device_time_total / 1e3
                                 for e in top[:8]}})
 
@@ -1830,7 +1924,7 @@ VARIANT_ROWS = {
     "mma_sync_3xtf32": ("conv3x3_mma.cu", "luma 64->64 leaky_relu"),
     "head_o1": ("conv3x3_head.cu", "luma 64->1"),
     "direct_f32": ("conv3x3.cu", "luma 1->64"),
-    "wgmma_bf16": ("conv3x3_wgmma.cu", "luma 64->64 leaky_relu"),
+    "wgmma_bf16": ("conv3x3_wgmma_bf16.cu", "luma 64->64 leaky_relu"),
     "head_bf16": ("conv3x3_head.cu", "luma 64->1"),
     "direct_bf16": ("conv3x3.cu", "luma 1->64"),
 }
@@ -1883,11 +1977,15 @@ def check_paths(launches):
             raise AssertionError(f"{path} launched {by_variant}, expected {sorted(want)}")
 
 
-def main():
+def main(argv):
     smi = phase_device()
     ptxas = phase_build()
     rows = phase_kernel()
     rows_bf16 = phase_kernel_bf16(ptxas)
+    if "--kernels" in argv:
+        if "--ab" in argv:
+            phase_ab(argv[argv.index("--ab") + 1])
+        return 0
     phase_small_reference()
     by_variant, slice_run = phase_slice(smi)
     phase_stream_small_reference()
@@ -1929,4 +2027,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

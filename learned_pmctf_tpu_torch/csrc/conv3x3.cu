@@ -20,7 +20,8 @@
 // Pallas kernel with act_bf16's operands) chooses the same way among
 // - O == 1: "head_bf16" (conv3x3_head.cu);
 // - C % 16 == 0, O % 8 == 0, O <= 64, W % 8 == 0, aligned: "wgmma_bf16"
-//   (conv3x3_wgmma.cu), one bf16 tensor-core product a K step;
+//   (conv3x3_wgmma_bf16.cu), bf16 products on the tensor cores with the
+//   weights resident in shared memory;
 // - everything else: "direct_bf16", the kernel below reading and writing
 //   bf16 and computing in f32 (a product of two bf16 values is exact in
 //   f32, so it computes what the TPU kernel does up to summation order).

@@ -24,12 +24,17 @@
 // - bias, residual and activation are fused; outputs are coalesced rows.
 // Deterministic: a fixed summation order (chunk, channel, row, kx).
 //
-// "head_bf16" is the same kernel for the bf16 instance (bf16 x, residual
-// and y; f32 weights, bias and arithmetic; one rounding on the store). Its
-// inputs are half the bytes, but cp.async cannot convert, so a stage is
-// filled by plain 16-byte loads (8 pixels) converted to f32 into the same
-// window layout; the ring then only overlaps one warp's loads with
-// another's FMAs.
+// "head_bf16" is the kernel for the bf16 instance (bf16 x, residual and y;
+// f32 weights, the bf16 ones upcast exactly; f32 arithmetic in the same
+// order; one rounding on the store). It reads half the bytes, 0.086 ms at
+// luma 1x64x1152x1920 (3.35 TB/s, H100 SXM at 700 W). Its ring holds the
+// raw bf16 inputs, filled by cp.async like the f32 one, and the FMAs
+// convert where they read shared memory (bf16 to f32 is a 16-bit shift).
+// A bf16 stage is half an f32 one, so the ring has four stages of 8
+// channels, 92 KB, and two blocks share an SM: six stages in flight, about
+// 138 KB on each SM. A window row is 18 copies of 8 pixels: the 8 left of
+// the tile (the last of them is the left halo), the 128 of the tile, and
+// the 8 right of it (the first is the right halo).
 
 #include "conv3x3_common.cuh"
 
@@ -40,80 +45,81 @@ constexpr int kTW = 128;
 constexpr int kTH = 8;
 constexpr int kCC = 8;
 constexpr int kPix = 4;                // rows a thread owns
-constexpr int kStride = kTW + 8;       // 3 unused, halo, 128, halo, 3 unused
 constexpr int kRows = kTH + 2;
-constexpr int kPlane = kRows * kStride;
-constexpr int kStageFloats = kCC * kPlane;
-constexpr int kStages = 3;
 constexpr int kMaxC = 2048;            // weights: 48 bytes a channel
 
-// stage_acts for bf16 inputs: the same f32 window (interior at column 4,
-// halo columns 3 and 4+TW), filled by plain loads and converted. `vec`:
-// 16 bytes (8 pixels) a load, which needs W % 8 == 0 and an x on 16 bytes.
-template <int CC, int ROWS, int TW, int STRIDE, int PLANE>
-__device__ __forceinline__ void stage_acts_bf16(float* dst, const __nv_bfloat16* xn,
+// The ring of the element type T that a stage holds.
+template <typename T>
+struct Ring;
+template <>
+struct Ring<float> {
+  static constexpr int kStride = kTW + 8;  // 3 unused, halo, 128, halo, 3 unused
+  static constexpr int kCol = 3;           // column of pixel -1 of the tile
+  static constexpr int kStages = 3;
+  static constexpr int kBlocks = 1;        // blocks an SM
+};
+template <>
+struct Ring<__nv_bfloat16> {
+  static constexpr int kStride = kTW + 16;  // 8 left of the tile, 128, 8 right
+  static constexpr int kCol = 7;
+  static constexpr int kStages = 4;
+  static constexpr int kBlocks = 2;
+};
+
+// Stage CC channels of the ROWS x STRIDE bf16 window whose first interior
+// pixel is (y0, x0) and whose first row is y0-1: copy v of a row holds
+// pixels x0 - 8 + 8 v (16 bytes), zero-filled where they lie outside the
+// image. With `vec` (W % 8 == 0 and x on 16 bytes) a copy is all inside or
+// all outside; else the elements are loaded one by one, synchronously.
+template <int CC, int ROWS, int STRIDE, int PLANE>
+__device__ __forceinline__ void stage_acts_bf16(__nv_bfloat16* dst, const __nv_bfloat16* xn,
                                                 int c0, int C, int y0, int x0, int H,
                                                 int W, bool vec, int tid) {
-  constexpr int VPR = TW / 8;
-  static_assert((VPR & (VPR - 1)) == 0 && (CC & (CC - 1)) == 0, "powers of two");
+  constexpr int VPR = STRIDE / 8;
   const size_t plane = (size_t)H * W;
-  for (int i = tid; i < CC * ROWS * VPR; i += kThreads) {
-    const int v = i % VPR;
-    const int cc = (i / VPR) % CC;
-    const int r = i / (VPR * CC);
-    const int gy = y0 - 1 + r;
-    const int gx = x0 + 8 * v;
-    const int c = c0 + cc;
-    const bool row_ok = c < C && gy >= 0 && gy < H;
-    const __nv_bfloat16* s = xn + (row_ok ? (size_t)c * plane + (size_t)gy * W : 0);
-    float f[8];
-    if (vec) {
-      if (row_ok && gx < W) {
-        const uint4 q = *reinterpret_cast<const uint4*>(s + gx);
-        const uint32_t words[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 p =
-              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&words[e]));
-          f[2 * e] = p.x;
-          f[2 * e + 1] = p.y;
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) f[e] = 0.f;
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        f[e] = (row_ok && gx + e < W) ? __bfloat162float(s[gx + e]) : 0.f;
+  if (vec) {
+    for (int i = tid; i < CC * ROWS * VPR; i += kThreads) {
+      const int v = i % VPR;
+      const int cc = (i / VPR) % CC;
+      const int r = i / (VPR * CC);
+      const int gy = y0 - 1 + r;
+      const int gx = x0 - 8 + 8 * v;
+      const int c = c0 + cc;
+      const bool ok = c < C && gy >= 0 && gy < H && gx >= 0 && gx < W;
+      cp_async16(dst + cc * PLANE + r * STRIDE + 8 * v,
+                 ok ? xn + (size_t)c * plane + (size_t)gy * W + gx : xn, ok ? 16 : 0);
     }
-    float4* d = reinterpret_cast<float4*>(dst + cc * PLANE + r * STRIDE + 4 + 8 * v);
-    d[0] = make_float4(f[0], f[1], f[2], f[3]);
-    d[1] = make_float4(f[4], f[5], f[6], f[7]);
+    return;
   }
-  for (int i = tid; i < CC * ROWS * 2; i += kThreads) {
-    const int side = i & 1;
-    const int cc = (i >> 1) % CC;
-    const int r = i / (2 * CC);
+  for (int i = tid; i < CC * ROWS * STRIDE; i += kThreads) {
+    const int k = i % STRIDE;
+    const int cc = (i / STRIDE) % CC;
+    const int r = i / (STRIDE * CC);
     const int gy = y0 - 1 + r;
-    const int gx = side ? x0 + TW : x0 - 1;
+    const int gx = x0 - 8 + k;
     const int c = c0 + cc;
     const bool ok = c < C && gy >= 0 && gy < H && gx >= 0 && gx < W;
-    dst[cc * PLANE + r * STRIDE + (side ? 4 + TW : 3)] =
-        ok ? __bfloat162float(xn[(size_t)c * plane + (size_t)gy * W + gx]) : 0.f;
+    dst[cc * PLANE + r * STRIDE + k] =
+        ok ? xn[(size_t)c * plane + (size_t)gy * W + gx] : __float2bfloat16_rn(0.f);
   }
 }
 
-// T: float (cp.async staging) or __nv_bfloat16 (stage_acts_bf16) for x,
-// res and y; the weights are f32
+// T: float or __nv_bfloat16 for x, res and y; the weights are f32
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, Ring<T>::kBlocks)
 conv3x3_head_kernel(const T* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ b, const T* __restrict__ res,
                     T* __restrict__ y, int N, int C, int H, int W, int act,
                     int vec) {
-  extern __shared__ __align__(16) float smem[];
-  float* w_s = smem + kStages * kStageFloats;  // [channel][12]: 9 taps, 3 unused
+  using R = Ring<T>;
+  constexpr int kStride = R::kStride;
+  constexpr int kPlane = kRows * kStride;
+  constexpr int kStageElems = kCC * kPlane;
+  constexpr int kStages = R::kStages;
+  static_assert(kStageElems * sizeof(T) % 16 == 0, "weights on 16 bytes");
+  extern __shared__ __align__(16) float smem_f[];
+  T* smem = reinterpret_cast<T*>(smem_f);
+  float* w_s = reinterpret_cast<float*>(smem + kStages * kStageElems);  // [channel][12]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -139,11 +145,11 @@ conv3x3_head_kernel(const T* __restrict__ x, const float* __restrict__ w,
     walk.decode(p_tile, n, ty, tx);
     if constexpr (sizeof(T) == 4)
       stage_acts<kCC, kRows, kTW, kStride, kPlane>(
-          smem + p_stage * kStageFloats, x + (size_t)n * C * plane, p_chunk * kCC,
+          smem + p_stage * kStageElems, x + (size_t)n * C * plane, p_chunk * kCC,
           C, ty * kTH, tx * kTW, H, W, vec != 0, tid);
     else
-      stage_acts_bf16<kCC, kRows, kTW, kStride, kPlane>(
-          smem + p_stage * kStageFloats, x + (size_t)n * C * plane, p_chunk * kCC,
+      stage_acts_bf16<kCC, kRows, kStride, kPlane>(
+          smem + p_stage * kStageElems, x + (size_t)n * C * plane, p_chunk * kCC,
           C, ty * kTH, tx * kTW, H, W, vec != 0, tid);
     if (++p_chunk == nchunks) {
       p_chunk = 0;
@@ -168,7 +174,7 @@ conv3x3_head_kernel(const T* __restrict__ x, const float* __restrict__ w,
     if (s + kStages - 1 < steps) stage_next();
     cp_async_commit();
 
-    const float* A = smem + c_stage * kStageFloats + row0 * kStride + 3 + col;
+    const T* A = smem + c_stage * kStageElems + row0 * kStride + R::kCol + col;
     const float4* wq = reinterpret_cast<const float4*>(w_s + c_chunk * kCC * 12);
 #pragma unroll
     for (int cc = 0; cc < kCC; ++cc) {
@@ -176,8 +182,8 @@ conv3x3_head_kernel(const T* __restrict__ x, const float* __restrict__ w,
       const float wv[9] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w, w2.x};
 #pragma unroll
       for (int r = 0; r < kPix + 2; ++r) {
-        const float* p = A + cc * kPlane + r * kStride;
-        const float v[3] = {p[0], p[1], p[2]};
+        const T* p = A + cc * kPlane + r * kStride;
+        const float v[3] = {to_float(p[0]), to_float(p[1]), to_float(p[2])};
 #pragma unroll
         for (int ky = 0; ky < 3; ++ky) {
           const int q = r - ky;  // the output row this input row feeds at tap ky
@@ -217,15 +223,21 @@ conv3x3_head_kernel(const T* __restrict__ x, const float* __restrict__ w,
 template <typename T>
 cudaError_t launch_head_t(const Args& a) {
   if (a.O != 1 || a.C > kMaxC) return cudaErrorInvalidValue;
+  constexpr int kStageBytes = kCC * kRows * Ring<T>::kStride * (int)sizeof(T);
   const int nchunks = (a.C + kCC - 1) / kCC;
-  const int smem = (kStages * kStageFloats + nchunks * kCC * 12) * 4;
+  const int smem = Ring<T>::kStages * kStageBytes + nchunks * kCC * 12 * 4;
   auto kernel = conv3x3_head_kernel<T>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
+  // persistent: as many blocks as fit on the SMs (the weights grow with C)
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  const int slots = sm_count() * (per_sm < Ring<T>::kBlocks ? per_sm : Ring<T>::kBlocks);
   const TileWalk walk(a.N, a.H, a.W, kTH, kTW);
-  const int grid = walk.total < sm_count() ? walk.total : sm_count();
-  // a vector load is 16 bytes: 4 f32 or 8 bf16 pixels
+  const int grid = walk.total < slots ? walk.total : slots;
+  // a copy is 16 bytes: 4 f32 or 8 bf16 pixels
   const int vec = a.W % (16 / (int)sizeof(T)) == 0 &&
                   reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
   kernel<<<grid, kThreads, smem, a.stream>>>(

@@ -38,13 +38,19 @@ accumulators, adds the f32 bias and residual in f32 and writes bf16.
 out), forward only, on three more variants:
 
 - ``wgmma_bf16`` (C % 16 == 0, O % 8 == 0, O <= 64, W % 8 == 0): the
-  64->64 convs, one ``wgmma.m64nNk16`` bf16 product a K step (bf16 is the
-  tensor cores' own input: no split), 989 TFLOP/s dense on an H100 SXM;
-  the weights packed by ``pack_weights_bf16``;
-- ``head_bf16`` (O == 1) and ``direct_bf16`` (the rest, C == 1 among
-  them): ``head_o1`` and ``direct_f32`` reading and writing bf16, with
-  f32 weights (the bf16 weights upcast, exactly) and f32 arithmetic; a
-  product of two bf16 values is exact in f32.
+  64->64 convs, bound by bytes. An implicit GEMM of its own on
+  ``wgmma.m64n128k16`` with M the outputs and N the pixels: the weights
+  (packed by ``pack_weights_bf16``) stay in shared memory for the block's
+  life; the activations arrive by TMA, and producer warps write the
+  windows shifted by a pixel, which ``wgmma`` reads from shared memory
+  through descriptors; the residual comes in by TMA ahead of the
+  epilogue, which runs while the next tile's products do;
+- ``head_bf16`` (O == 1): ``head_o1``'s kernel with a ring of the raw
+  bf16 inputs (``cp.async``, four stages, two blocks an SM), converted
+  where the FMAs read them; ``direct_bf16`` (the rest, C == 1 among
+  them): ``direct_f32`` reading and writing bf16. Both take f32 weights (the bf16 weights
+  upcast, exactly) and compute in f32; a product of two bf16 values is
+  exact in f32.
 
 ``conv3x3`` launches a kernel for CUDA tensors, or raises; it runs the
 plain version ``conv3x3_plain`` only for tensors on the CPU. With grad
@@ -79,8 +85,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = tuple(os.path.join(CSRC, name) for name in
                 ("conv3x3.cu", "conv3x3_mma.cu", "conv3x3_wgmma.cu",
-                 "conv3x3_head.cu"))
-HEADERS = (os.path.join(CSRC, "conv3x3_common.cuh"),)
+                 "conv3x3_wgmma_bf16.cu", "conv3x3_head.cu"))
+HEADERS = tuple(os.path.join(CSRC, name) for name in
+                ("conv3x3_common.cuh", "conv3x3_hopper.cuh"))
 BUILD_DIR = os.path.join(_PKG, "build")
 LIBRARY = os.path.join(BUILD_DIR, "libconv3x3.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -225,26 +232,19 @@ def unpack_weights(pack, layout, o, c):
     return parts[0].contiguous(), parts[1].contiguous()
 
 
-# K index k of a 16-channel chunk -> its channel in ``pack_weights_bf16``.
-# Thread t of a wgmma A fragment holds k = 2t, 2t+1, 2t+8, 2t+9; they are
-# channels t, t+4, t+8, t+12, so that a fragment load reads four channel
-# planes of the window that lie 24 banks apart (csrc/conv3x3_wgmma.cu).
-BF16_K_CHANNEL = tuple((k % 2) * 4 + (k % 8) // 2 + 8 * (k // 8) for k in range(16))
-
-
 def pack_weights_bf16(w, o_pad=None):
-    """OIHW bf16 weights laid out for ``wgmma_bf16``'s B tiles, as one flat
-    bf16 tensor: [chunk of 16 channels][tap][k half][n-tile of 8 outputs]
-    [output][8 k], the K-major core matrices (8 outputs x 16 bytes) of an
-    unswizzled shared-memory descriptor, with k -> channel as
-    ``BF16_K_CHANNEL``. Outputs from O up to ``o_pad`` are zero."""
+    """OIHW bf16 weights laid out for ``wgmma_bf16``'s resident A tiles, as
+    one flat bf16 tensor: [chunk of 16 channels][tap][k half][m-tile of 8
+    outputs][output][8 k], k the channel of the chunk: the K-major core
+    matrices (8 outputs x 16 bytes) of an unswizzled shared-memory
+    descriptor, one 2 KB tile a (chunk, tap) (csrc/conv3x3_wgmma_bf16.cu).
+    Outputs from O up to ``o_pad`` are zero."""
     o, c = w.shape[:2]
     o_pad = o if o_pad is None else o_pad
     if c % 16 or o_pad % 8 or o_pad < o:
         raise ValueError(f"cannot pack ({o}, {c}) weights to {o_pad} outputs: "
                          "C must be a multiple of 16, the padded O of 8")
     wk = F.pad(w.reshape(o, c, 9), (0, 0, 0, 0, 0, o_pad - o))
-    wk = wk.reshape(o_pad, c // 16, 16, 9)[:, :, list(BF16_K_CHANNEL)]
     wk = wk.reshape(o_pad // 8, 8, c // 16, 2, 8, 9).permute(2, 5, 3, 0, 1, 4)
     return wk.reshape(-1).contiguous()
 
@@ -253,10 +253,7 @@ def unpack_weights_bf16(pack, o, c):
     """Inverse of ``pack_weights_bf16``: the (O, C, 3, 3) weights."""
     o_pad = pack.numel() // (9 * c)
     wk = pack.reshape(c // 16, 9, 2, o_pad // 8, 8, 8).permute(3, 4, 0, 2, 5, 1)
-    wk = wk.reshape(o_pad, c // 16, 16, 9)
-    out = torch.empty_like(wk)
-    out[:, :, list(BF16_K_CHANNEL)] = wk
-    return out.reshape(o_pad, c, 3, 3)[:o].contiguous()
+    return wk.reshape(o_pad, c, 3, 3)[:o].contiguous()
 
 
 def packed_weights(w, layout, o_pad=None):

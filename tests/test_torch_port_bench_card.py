@@ -68,6 +68,30 @@ def test_bf16_kernels_match_plain_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,c,o,h,w,act,res", [
+    (2, 64, 64, 75, 200, None, True), (1, 64, 64, 37, 136, "tanh", False),
+    (2, 64, 1, 75, 200, None, True), (1, 64, 1, 37, 136, "tanh", False),
+    (1, 128, 64, 21, 72, "leaky_relu", True)])
+def test_redesigned_bf16_kernels_at_ragged_shapes_on_card(n, c, o, h, w, act, res):
+    """wgmma_bf16 and head_bf16 at chip_smoke.py's ragged shapes: a height
+    no multiple of their tiles, a right edge inside a tile, and 128 input
+    channels (wgmma_bf16 then loads its weights 64 channels at a time);
+    against the plain version, and bit-equal across launches."""
+    g = _card()
+    x = torch.randn(n, c, h, w, device="cuda", generator=g).bfloat16()
+    wt = (torch.randn(o, c, 3, 3, device="cuda", generator=g) / (3 * c ** 0.5)).bfloat16()
+    b = torch.randn(o, device="cuda", generator=g) * 0.1
+    r = torch.randn(n, o, h, w, device="cuda", generator=g).bfloat16() if res else None
+    name = "wgmma_bf16" if o == 64 else "head_bf16"
+    assert c3.variants_for(c, o, w, torch.bfloat16)[0] == name
+    y1 = c3.conv3x3_variant(name, x, wt, b, act=act, residual=r)
+    y2 = c3.conv3x3_variant(name, x, wt, b, act=act, residual=r)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+    assert_bf16_close(y1, c3.conv3x3_plain(x, wt, b, act=act, residual=r), (name, h, w))
+
+
+@pytest.mark.cuda
 def test_policy_convs_on_card():
     """The policy's convs on CUDA: below 8 channels a group the f32
     convolution of the bf16-rounded operands, rounded once (bit for bit);

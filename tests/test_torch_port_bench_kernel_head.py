@@ -23,23 +23,21 @@ def test_bf16_plain_head_matches_pallas(act, res):
 
 
 def test_bf16_weight_pack_round_trips():
-    """pack_weights_bf16 lays out [chunk][tap][k half][n-tile][output][8 k]
-    with k -> channel as BF16_K_CHANNEL; the pack holds every weight once
-    and zeros for the padded outputs."""
-    assert sorted(c3.BF16_K_CHANNEL) == list(range(16))
-    # thread t's K indexes 2t, 2t+1, 2t+8, 2t+9 are channels t, t+4, t+8, t+12
-    for t in range(4):
-        assert [c3.BF16_K_CHANNEL[k] for k in (2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)] \
-            == [t, t + 4, t + 8, t + 12]
+    """pack_weights_bf16 lays out [chunk][tap][k half][m-tile][output][8 k]
+    with k the channel of the chunk (wgmma_bf16's resident A tiles); the
+    pack holds every weight once and zeros for the padded outputs."""
     g = torch.Generator().manual_seed(0)
     w = torch.randn(56, 32, 3, 3, generator=g).bfloat16()
     pack = c3.pack_weights_bf16(w, 64)
     assert pack.dtype == torch.bfloat16 and pack.numel() == 64 * 32 * 9
     assert torch.equal(c3.unpack_weights_bf16(pack, 56, 32), w)
-    # chunk 1, tap 4, k half 1, n-tile 2, output 3, k 5: weight
-    # (8 * 2 + 3, 16 + BF16_K_CHANNEL[8 + 5], 4 // 3, 4 % 3)
+    # chunk 1, tap 4, k half 1, m-tile 2, output 3, k 5: weight
+    # (8 * 2 + 3, 16 + 8 + 5, 4 // 3, 4 % 3)
     idx = ((((1 * 9 + 4) * 2 + 1) * 8 + 2) * 8 + 3) * 8 + 5
-    assert pack[idx] == w[19, 16 + c3.BF16_K_CHANNEL[13], 1, 1]
+    assert pack[idx] == w[19, 29, 1, 1]
+    # one (chunk, tap) A tile is 2 KB: 64 outputs x 16 channels
+    tile = pack.reshape(2, 9, 2, 8, 8, 8)[1, 4].permute(1, 2, 0, 3).reshape(64, 16)
+    assert torch.equal(tile[:56], w[:, 16:32, 1, 1])
     assert int((pack.reshape(2, 9, 2, 8, 8, 8)[:, :, :, 7] != 0).sum()) == 0
     with pytest.raises(ValueError):
         c3.pack_weights_bf16(torch.zeros(64, 8, 3, 3, dtype=torch.bfloat16), 64)
