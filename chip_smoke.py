@@ -11,12 +11,17 @@ exits non-zero:
    turns TF32 off;
 2. build: compiles the conv3x3 CUDA kernels from csrc/ with nvcc (one
    nvcc a source, together) and reports ptxas' registers and spills;
-3. kernel: at the main path's six shapes and at two shapes of the next
-   slice, holds every variant that takes the shape against the plain
-   PyTorch version (1e-3) and a float64 reference (1e-4: one TF32
-   product would miss it), launches it twice for bit-equality, and times
-   it beside the plain version, one cuDNN F.conv2d call (a yardstick the
-   port never calls) and the bound of the unit it runs on;
+3. kernel: at the main path's seven shapes, at two shapes of the next
+   slice and at two 1->64 shapes off the path (a ragged plane with a
+   residual and tanh; rows of no 16-byte multiple), holds every variant
+   that takes the shape against the plain PyTorch version (1e-3) and a
+   float64 reference (1e-4: one TF32 product would miss it), launches it
+   twice for bit-equality, and times it (one launch after a synchronize,
+   the wrapper's host time included, and back to back) beside the plain
+   version, one cuDNN F.conv2d call (a yardstick the port never calls)
+   and the bound of the unit it runs on; at the 1->64 shapes it also
+   checks which of the direct variants' two kernels ran, and that the
+   C = 1 kernel gives the general kernel's bits;
 4. small reference: a GOP-4 of a small model at 64x64 on the card
    against the same model on the CPU (the CPU path is what the tests
    hold against the JAX package);
@@ -62,7 +67,8 @@ exits non-zero:
    four convs (pMCTF 8x128x128, pWave 16x256x256): d_x, d_w, d_b,
    d_residual against the plain version's autograd (1e-3) and float64
    (1e-4), relative to each gradient's largest magnitude; forward, the
-   d_x launch and the backward timed, d_x beside its bound and one
+   d_x launch (with the cached flipped weights, and flipped and packed
+   anew) and the backward timed, d_x beside its bound and one
    torch.nn.grad.conv2d_input call;
 14. train_small_reference: the small config's GOP-2 train loss and every
    gradient on the card against the CPU (same weights, noise drawn on
@@ -85,10 +91,11 @@ exits non-zero:
 
 18. kernel_bf16 (run after phase 3): the bf16 instance of the kernel (act_bf16's operands:
    bf16 x, weights and residual, f32 bias, bf16 out) at the main path's
-   six shapes and the chroma 64->1, then two ragged shapes off the path
+   seven shapes and the chroma 64->1, then two ragged shapes off the path
    (a height that is no multiple of the tiles, a right edge inside a
-   tile) for wgmma_bf16 and head_bf16 and a 128->64 conv (wgmma_bf16's
-   weights in two loads): each bf16 variant against its
+   tile) for wgmma_bf16 and head_bf16, a 128->64 conv (wgmma_bf16's
+   weights in two loads) and phase 3's two 1->64 shapes off the path:
+   each bf16 variant against its
    bf16 plain version (one bf16 ulp plus 1e-5 of the largest output, at
    most 1e-3 of the elements differing), against float64 on the
    bf16-rounded operands (half a bf16 ulp plus 1e-5 of the largest
@@ -111,9 +118,11 @@ trainer's default, cli/train_pmctf.py), with its idle share.
 
 ``python3 chip_smoke.py --kernels`` runs phases 1-3 and 18 alone, and
 ``python3 chip_smoke.py --kernels --ab DIR`` then times the variants of
-both kernel phases' main-path shapes against those of the checkout at
-DIR (another commit of this repo, built into DIR's own build directory),
-in turns: DIR's, this tree's, this tree's, DIR's, on the same inputs.
+both kernel phases' main-path shapes and of the training 1->64 input
+gradients against those of the checkout at DIR (another commit of this
+repo, built into DIR's own build directory), in turns: DIR's, this
+tree's, this tree's, DIR's, on the same inputs; every variant must give
+the same bits from both.
 
 Then it prints the variants the main path did not take, the kernels line
 (one entry a variant a path launched; ``launches`` counts the estimate
@@ -122,7 +131,9 @@ bf16 ones, ``stream_launches`` the stream GOP-4, ``ar_launches`` and
 ``ar_stream_launches`` the same with the AR LL coder, ``train_launches``
 a GOP-4 train step, ``bench_launches`` the bench configuration's GOP-4;
 each path launches exactly its variants: the f32 paths the f32 ones, the
-bench the bf16 ones) and, last, {"ok": true, "device": ...}.
+bench the bf16 ones, and every launch of a direct variant on a path runs
+its C = 1 kernel, as the C layer counts them) and, last, {"ok": true,
+"device": ...}.
 """
 
 import json
@@ -174,6 +185,26 @@ def cuda_ms(fn, reps=10):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def cuda_ms_back_to_back(fn, reps=20, rounds=3):
+    """Median over `rounds` of the time of `reps` launches of fn queued
+    back to back, a launch's share, in ms: the card's time without the
+    host's time between a synchronize and the next launch, which
+    ``cuda_ms`` includes."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -273,6 +304,47 @@ def conv_bound(n, c, o, h, w, residual, variant):
             "f32_core_bound_ms": max(t_f32, t_bytes)}
 
 
+def unaligned(t):
+    """t's values in a tensor one element off 16 bytes."""
+    flat = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    u = flat[1:].view_as(t)
+    u.copy_(t)
+    return u
+
+
+def direct_kernel_ran(dtype, launch):
+    """Which of the direct variants' two kernels `launch` ran, as the C
+    layer counted the C = 1 kernel's launches: "c1" or "general"."""
+    from learned_pmctf_tpu_torch.ops import conv3x3 as c3
+    c3.direct_c1_launches(dtype, reset=True)
+    y = launch()
+    return y, "c1" if c3.direct_c1_launches(dtype, reset=True) else "general"
+
+
+def direct_kernel_bits(row, variants, x, wt, b, act, r):
+    """Which kernel of the direct variants ran a C = 1 shape; where it
+    was the C = 1 kernel, it must give the general kernel's bits: the same
+    values through an unaligned copy of x, which must run the general
+    kernel."""
+    from learned_pmctf_tpu_torch.ops import conv3x3 as c3
+    direct = "direct_bf16" if x.dtype == torch.bfloat16 else "direct_f32"
+    if x.shape[1] != 1 or direct not in variants:
+        return
+    y, row["direct_kernel"] = direct_kernel_ran(x.dtype, lambda: c3.conv3x3_variant(
+        direct, x, wt, b, act=act, residual=r))
+    if row["direct_kernel"] == "c1":
+        y_general, ran = direct_kernel_ran(x.dtype, lambda: c3.conv3x3_variant(
+            direct, unaligned(x), wt, b, act=act, residual=r))
+        if ran != "general":
+            raise AssertionError(f"conv3x3 {row['shape']} {direct}: an unaligned x ran "
+                                 f"the {ran} kernel")
+        same = torch.equal(y, y_general)
+        row["same_bits_as_general_kernel"] = same
+        if not same:
+            raise AssertionError(f"conv3x3 {row['shape']} {direct}: the C = 1 kernel and "
+                                 "the general kernel differ")
+
+
 def measure_conv(label, n, c, o, hh, ww, act, res, g):
     """One shape of the kernel phase: the variant conv3x3 takes, held
     against the plain version and a float64 reference, launched twice for
@@ -307,12 +379,14 @@ def measure_conv(label, n, c, o, hh, ww, act, res, g):
         ms = cuda_ms(run)
         if v == variant:
             row.update({"max_abs_err": err, "err_f64": err64,
-                        "deterministic": same, "ms": ms})
+                        "deterministic": same, "ms": ms,
+                        "ms_back_to_back": cuda_ms_back_to_back(run)})
         else:
             row.update({f"{v}_ms": ms, f"{v}_max_abs_err": err,
                         f"{v}_err_f64": err64})
         del y
     del ref64, plain
+    direct_kernel_bits(row, [variant] + others, x, wt, b, act, r)
     row["plain_ms"] = cuda_ms(lambda: c3.conv3x3_plain(x, wt, b, act=act, residual=r))
     row["library_ms"] = cuda_ms(lambda: F.conv2d(x, wt, b, padding=1))
     row.update(conv_bound(n, c, o, hh, ww, res, variant))
@@ -324,8 +398,8 @@ def measure_conv(label, n, c, o, hh, ww, act, res, g):
 
 
 def f32_cases():
-    """The six shapes of the main path, then two shapes the main path does
-    not send to the kernel yet (the four-step priors' 112 and 128
+    """The seven shapes of the main path, then two shapes the main path
+    does not send to the kernel yet (the four-step priors' 112 and 128
     channels at the level-1 subband plane), measured for the next slice."""
     h, w = LUMA
     return [  # (label, n, c, o, h, w, act, residual)
@@ -335,6 +409,7 @@ def f32_cases():
         ("luma 64->1", 1, 64, 1, h, w, None, False),
         ("chroma 64->64 leaky_relu", 2, 64, 64, h // 2, w // 2, "leaky_relu", False),
         ("chroma 64->64 residual", 2, 64, 64, h // 2, w // 2, None, True),
+        ("chroma 1->64", 2, 1, 64, h // 2, w // 2, None, False),
         ("subband 112->112 leaky_relu (off the main path)", 1, 112, 112,
          h // 2, w // 2, "leaky_relu", False),
         ("subband 128->128 leaky_relu (off the main path)", 1, 128, 128,
@@ -342,9 +417,37 @@ def f32_cases():
     ]
 
 
+# off the path: 1->64 on a ragged plane with a residual and tanh (the C =
+# 1 kernel: its stores clipped at both edges), and on rows of no 16-byte
+# multiple (the direct variants' general kernel); phase 18 runs them too
+F32_RAGGED = [
+    ("ragged 2x1x75x200 1->64 residual tanh", 2, 1, 64, 75, 200, "tanh", True),
+    ("unaligned 1x1x37x133 1->64", 1, 1, 64, 37, 133, None, False),
+]
+
+
+def main_path(cases):
+    """The cases of the main path's shapes."""
+    return [case for case in cases if case[0].split()[0] in ("luma", "chroma")
+            and "off the main path" not in case[0]]
+
+
+def check_direct_kernels(rows):
+    """The 1->64 shapes on rows of a 16-byte multiple ran the direct
+    variants' C = 1 kernel, the unaligned one the general kernel (as
+    direct_kernel_ran saw them)."""
+    for row in rows:
+        if "1->64" in row["shape"]:
+            want = "general" if row["shape"].startswith("unaligned") else "c1"
+            if row.get("direct_kernel") != want:
+                raise AssertionError(f"conv3x3 {row['shape']}: ran the direct variants' "
+                                     f"{row.get('direct_kernel')} kernel, expected {want}")
+
+
 def phase_kernel():
     g = torch.Generator(device="cuda").manual_seed(0)
-    rows = [measure_conv(*case, g) for case in f32_cases()]
+    rows = [measure_conv(*case, g) for case in f32_cases() + F32_RAGGED]
+    check_direct_kernels(rows)
     torch.cuda.empty_cache()
     return rows
 
@@ -398,11 +501,12 @@ def measure_conv_bf16(label, n, c, o, hh, ww, act, res, g):
                  "err_f64": float(d64.max()), "of_allowed_f64": ulps64,
                  "deterministic": same, "ms": cuda_ms(run)}
         if v == variant:
-            row.update(stats)
+            row.update(stats, ms_back_to_back=cuda_ms_back_to_back(run))
         else:
             row.update({f"{v}_{k}": val for k, val in stats.items()})
         del y, yf, d, d64
     del ref64, plain
+    direct_kernel_bits(row, [variant] + others, x, wt, b, act, r)
     row["plain_ms"] = cuda_ms(lambda: c3.conv3x3_plain(x, wt, b, act=act, residual=r))
     bb = b.bfloat16()
     row["library_ms"] = cuda_ms(lambda: F.conv2d(x, wt, bb, padding=1))
@@ -415,7 +519,7 @@ def measure_conv_bf16(label, n, c, o, hh, ww, act, res, g):
 
 
 def bf16_cases():
-    """The bf16 instance's main-path shapes: the six of phase 3 and the
+    """The bf16 instance's main-path shapes: the seven of phase 3 and the
     chroma 64->1 (the bench's chroma PostProcess)."""
     h, w = LUMA
     return [
@@ -426,6 +530,7 @@ def bf16_cases():
         ("chroma 64->64 leaky_relu", 2, 64, 64, h // 2, w // 2, "leaky_relu", False),
         ("chroma 64->64 residual", 2, 64, 64, h // 2, w // 2, None, True),
         ("chroma 64->1", 2, 64, 1, h // 2, w // 2, None, False),
+        ("chroma 1->64", 2, 1, 64, h // 2, w // 2, None, False),
     ]
 
 
@@ -438,7 +543,7 @@ BF16_RAGGED = [
     ("ragged 2x64x75x200 64->1 residual", 2, 64, 1, 75, 200, None, True),
     ("ragged 1x64x37x136 64->1 tanh", 1, 64, 1, 37, 136, "tanh", False),
     ("128 channels 1x128x21x72 128->64 residual", 1, 128, 64, 21, 72, "leaky_relu", True),
-]
+] + F32_RAGGED
 
 
 def bf16_kernels(ptxas):
@@ -450,6 +555,7 @@ def phase_kernel_bf16(ptxas):
     """The bf16 instance at its main-path shapes, then the ragged ones."""
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = [measure_conv_bf16(*case, g) for case in bf16_cases() + BF16_RAGGED]
+    check_direct_kernels(rows)
     emit({"phase": "kernel_bf16_ptxas", "kernels": bf16_kernels(ptxas)})
     torch.cuda.empty_cache()
     return rows
@@ -466,19 +572,20 @@ def load_conv3x3(root, name):
     return mod
 
 
-def phase_ab(other_root):
-    """The variant each main-path shape takes, in f32 and bf16, timed as
-    built from the checkout at `other_root` ("other") and from this tree
-    ("this") on the same inputs, in turns: other, this, this, other. An
-    f32 variant must give the same bits from both."""
+# the input gradients of training's 64->1 convs (pMCTF's and pWave's
+# batch and patch): 1->64 convs on the direct variants' C = 1 kernel
+C1_TRAIN_CASES = [
+    ("train d_x 8x1x128x128 1->64", 8, 1, 64, 128, 128, None, False),
+    ("train d_x 16x1x256x256 1->64", 16, 1, 64, 256, 256, None, False),
+]
+
+
+def ab_turns(phase, other, cases):
+    """Each case's variant as `other` (another build of ops/conv3x3.py)
+    and this tree build it, on the same inputs, timed in turns: other,
+    this, this, other. Both must give the same bits."""
     from learned_pmctf_tpu_torch.ops import conv3x3 as this
-    other = load_conv3x3(other_root, "other_conv3x3")
-    ptxas = parse_ptxas(other.build(force=True))
-    emit({"phase": "ab_build", "other": other_root,
-          "other_ptxas": bf16_kernels(ptxas)})
     g = torch.Generator(device="cuda").manual_seed(0)
-    cases = ([(case, torch.float32) for case in f32_cases()[:6]]
-             + [(case, torch.bfloat16) for case in bf16_cases()])
     for (label, n, c, o, hh, ww, act, res), dtype in cases:
         x = torch.randn(n, c, hh, ww, device="cuda", generator=g).to(dtype)
         wt = (torch.randn(o, c, 3, 3, device="cuda", generator=g) / (3 * c ** 0.5)).to(dtype)
@@ -489,20 +596,40 @@ def phase_ab(other_root):
         runs = {name: (lambda m=m, w=w: m.conv3x3_variant(variant, x, w, b, act=act,
                                                           residual=r))
                 for name, m, w in (("other", other, wt.clone()), ("this", this, wt))}
+        this.direct_c1_launches(dtype, reset=True)
         outs = {name: run() for name, run in runs.items()}
+        # the other tree's library counts its own launches, if it counts any
+        c1 = this.direct_c1_launches(dtype, reset=True)
         same = torch.equal(outs["other"], outs["this"])
-        if dtype == torch.float32 and not same:
-            raise AssertionError(f"ab {label} {variant}: the f32 variant changed its bits")
+        if not same:
+            raise AssertionError(f"{phase} {label} {variant}: the variant changed its bits")
         times = {"other": [], "this": []}
         for name in ("other", "this", "this", "other"):
             times[name].append(cuda_ms(runs[name]))
-        emit({"phase": "ab", "shape": label, "dtype": str(dtype).split(".")[-1],
-              "variant": variant, "other_ms": times["other"], "this_ms": times["this"],
-              "same_bits": same, "max_abs_diff": float(
-                  (outs["other"].float() - outs["this"].float()).abs().max()),
-              **conv_bound(n, c, o, hh, ww, res, variant)})
+        row = {"phase": phase, "shape": label, "dtype": str(dtype).split(".")[-1],
+               "variant": variant, "other_ms": times["other"], "this_ms": times["this"],
+               "same_bits": same, "max_abs_diff": float(
+                   (outs["other"].float() - outs["this"].float()).abs().max()),
+               **conv_bound(n, c, o, hh, ww, res, variant)}
+        if variant.startswith("direct"):
+            row["direct_kernel"] = "c1" if c1 else "general"
+        emit(row)
         del outs
     torch.cuda.empty_cache()
+
+
+def phase_ab(other_root):
+    """The variant each main-path shape takes, in f32 and bf16, and the
+    training 1->64 input gradients, as built from the checkout at
+    `other_root` ("other") and from this tree ("this"), in turns; every
+    variant must give the same bits from both."""
+    other = load_conv3x3(other_root, "other_conv3x3")
+    ptxas = parse_ptxas(other.build(force=True))
+    emit({"phase": "ab_build", "other": other_root,
+          "other_ptxas": bf16_kernels(ptxas)})
+    ab_turns("ab", other, [(case, torch.float32) for case in main_path(f32_cases())]
+             + [(case, torch.float32) for case in C1_TRAIN_CASES]
+             + [(case, torch.bfloat16) for case in bf16_cases()])
 
 
 def synthetic_gop(n, h, w, device, seed=0):
@@ -574,6 +701,30 @@ def postprocess_launches(w, planes, dtype=torch.float32):
             variants_for(64, 1, w, dtype)[0]: planes}
 
 
+def count_from_zero():
+    """Set the launch counts to 0 before a path's counted run: the
+    wrapper's by variant, and the C layer's of the direct variants' C = 1
+    kernel."""
+    from learned_pmctf_tpu_torch.ops import conv3x3 as c3
+    c3.conv3x3.launches, c3.conv3x3.by_variant = 0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        c3.direct_c1_launches(dtype, reset=True)
+
+
+def counted(path):
+    """The launches by variant since count_from_zero. Every launch of a
+    direct variant on a path must have run its C = 1 kernel, as the C
+    layer counted them: that kernel is the one the kernels line names."""
+    from learned_pmctf_tpu_torch.ops import conv3x3 as c3
+    by_variant = dict(c3.conv3x3.by_variant)
+    for variant, dtype in (("direct_f32", torch.float32), ("direct_bf16", torch.bfloat16)):
+        c1 = c3.direct_c1_launches(dtype)
+        if by_variant.get(variant, 0) != c1:
+            raise AssertionError(f"{path}: {by_variant.get(variant, 0)} launches of "
+                                 f"{variant}, {c1} of them on its C = 1 kernel")
+    return by_variant
+
+
 def timed_code_gop(model, luma, chroma):
     """The estimate GOP: a warm-up, a run whose conv3x3 launches are
     counted (a GOP-4 reconstructs 2 planes a frame), then 3 timed runs.
@@ -588,9 +739,9 @@ def timed_code_gop(model, luma, chroma):
         return out
 
     run()  # warm-up
-    conv3x3.launches, conv3x3.by_variant = 0, {}
+    count_from_zero()
     out = run()
-    launches, by_variant = conv3x3.launches, dict(conv3x3.by_variant)
+    launches, by_variant = conv3x3.launches, counted("estimate GOP-4")
     expected = postprocess_launches(w, 2 * GOP)
     if launches != 15 * 2 * GOP or by_variant != expected:
         raise AssertionError(f"conv3x3 launched {launches} times, by variant "
@@ -823,13 +974,13 @@ def stream_runs(model, luma, chroma, est_bits, ll_mode="fourstep"):
         d = os.path.join(root, name)
         os.makedirs(d)
         codec.stats.reset()
-        conv3x3.launches, conv3x3.by_variant = 0, {}
+        count_from_zero()
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = stream_gop(codec, luma, chroma, 10.0, d, **kw)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3
-        by_variant = dict(conv3x3.by_variant)
+        by_variant = counted(f"stream {name}")
         expected = {k: v * sides for k, v in per_side.items()}
         if by_variant != expected:
             raise AssertionError(f"stream {name}: conv3x3 launches by variant "
@@ -1154,7 +1305,6 @@ def phase_bench(smi):
     from learned_pmctf_tpu_torch.cli.bench import BENCH_CONFIG, METRIC, bench_frames
     from learned_pmctf_tpu_torch.gop import code_gop
     from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
-    from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3
     h, w = LUMA
     cmd = [sys.executable, "-m", "learned_pmctf_tpu_torch.cli.bench", "--secondary"]
     t = time.perf_counter()
@@ -1192,12 +1342,12 @@ def phase_bench(smi):
     luma, chroma = bench_frames(GOP, h, w, "cuda")
     code_gop(model, luma, chroma, 10.0)  # warm-up
     torch.cuda.synchronize()
-    conv3x3.launches, conv3x3.by_variant = 0, {}
+    count_from_zero()
     t = time.perf_counter()
     gop4 = code_gop(model, luma, chroma, 10.0)
     torch.cuda.synchronize()
     gop4_ms = (time.perf_counter() - t) * 1e3
-    by_variant = dict(conv3x3.by_variant)
+    by_variant = counted("bench GOP-4")
     expected = postprocess_launches(w, 2 * GOP, torch.bfloat16)
     if by_variant != expected:
         raise AssertionError(f"bench GOP-4: conv3x3 launches {by_variant}, "
@@ -1294,9 +1444,12 @@ def phase_train_kernel_grad(smi):
             wf = c3.flipped_weights(w)
             zeros = w.new_zeros(c)
             d_variant = c3.variants_for(o, c, ww)[0]
-            # as backward runs it: flip, pack, launch; and the launch alone on
-            # weights packed once
+            # as backward runs it (the flip and its pack cached on w); and the
+            # launch alone on weights packed once
             dx_ms = cuda_ms(lambda: c3.conv3x3(dy, c3.flipped_weights(w), zeros))
+            # flipped and packed anew on every call, as without the cache
+            dx_uncached_ms = cuda_ms(lambda: c3.conv3x3(
+                dy, w.flip(2, 3).transpose(0, 1).contiguous(), zeros))
             dx_kernel_ms = cuda_ms(lambda: c3.conv3x3(dy, wf, zeros))
             dx_library_ms = cuda_ms(lambda: torch.nn.grad.conv2d_input(
                 x.shape, w, dy, padding=1))
@@ -1321,7 +1474,8 @@ def phase_train_kernel_grad(smi):
                    "d_w_one_call_ms": cuda_ms(lambda: torch.nn.grad.conv2d_weight(
                        x, w.shape, dy, padding=1)),
                    "forward_ms": cuda_ms(lambda: fwd(c3.conv3x3).detach()),
-                   "d_x_ms": dx_ms, "d_x_kernel_ms": dx_kernel_ms,
+                   "d_x_ms": dx_ms, "d_x_uncached_ms": dx_uncached_ms,
+                   "d_x_kernel_ms": dx_kernel_ms,
                    "d_x_plain_ms": dx_plain_ms,
                    "d_x_library_ms": dx_library_ms,
                    "forward_backward_ms": cuda_ms(bwd(c3.conv3x3)),
@@ -1581,10 +1735,10 @@ def timed_train_steps(step, frames, noise, steps, expect):
             raise AssertionError(f"train step: non-finite loss {log}")
         return log
 
-    conv3x3.launches, conv3x3.by_variant = 0, {}
+    count_from_zero()
     packs = packed_weights.packs
     run()
-    launches, by_variant = conv3x3.launches, dict(conv3x3.by_variant)
+    launches, by_variant = conv3x3.launches, counted("train step")
     packs = packed_weights.packs - packs
     if by_variant != expect:
         raise AssertionError(f"train step: conv3x3 launches by variant {by_variant}, "
@@ -1782,7 +1936,6 @@ def phase_train_pwave(smi):
     gradients: no recomputation), 3 timed steps, peak memory."""
     from learned_pmctf_tpu_torch.models.layers import init_params
     from learned_pmctf_tpu_torch.models.pwave import PWave
-    from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3
     from learned_pmctf_tpu_torch.training.optim import make_optimizer
     from learned_pmctf_tpu_torch.training.steps import make_pwave_train_step
     model = init_params(PWave(), torch.Generator().manual_seed(0)).cuda().train()
@@ -1797,10 +1950,10 @@ def phase_train_pwave(smi):
             raise AssertionError(f"train_pwave: non-finite loss {m}")
         return m
 
-    conv3x3.launches, conv3x3.by_variant = 0, {}
+    count_from_zero()
     run()
     expect = train_launch_expect(1, w, recompute=False)
-    by_variant = dict(conv3x3.by_variant)
+    by_variant = counted("train_pwave")
     post = {k: float(getattr(model.dequantModule, k).weight.grad.abs().max())
             for k in ("conv1", "conv3")}
     if by_variant != expect or not all(v > 0 for v in post.values()):
@@ -1923,10 +2076,10 @@ VARIANT_ROWS = {
     "wgmma_3xtf32": ("conv3x3_wgmma.cu", "luma 64->64 leaky_relu"),
     "mma_sync_3xtf32": ("conv3x3_mma.cu", "luma 64->64 leaky_relu"),
     "head_o1": ("conv3x3_head.cu", "luma 64->1"),
-    "direct_f32": ("conv3x3.cu", "luma 1->64"),
+    "direct_f32": ("conv3x3_direct_c1.cu", "luma 1->64"),
     "wgmma_bf16": ("conv3x3_wgmma_bf16.cu", "luma 64->64 leaky_relu"),
     "head_bf16": ("conv3x3_head.cu", "luma 64->1"),
-    "direct_bf16": ("conv3x3.cu", "luma 1->64"),
+    "direct_bf16": ("conv3x3_direct_c1.cu", "luma 1->64"),
 }
 # the path whose run gives an entry's "launches"
 MAIN_PATH = {"f32": "launches", "bf16": "bench_launches"}

@@ -14,7 +14,10 @@
 //   cores; "wgmma_3xtf32" (conv3x3_wgmma.cu) where W % 4 == 0 and the
 //   tensors lie on 16 bytes, else "mma_sync_3xtf32" (conv3x3_mma.cu), at
 //   about half the rate;
-// - everything else (C = 1, odd channel counts): "direct_f32", below.
+// - everything else (C = 1, odd channel counts): "direct_f32": at C = 1,
+//   O <= 64 on rows of a 16-byte multiple with the tensors on 16 bytes
+//   the kernel of conv3x3_direct_c1.cu, bound by its writes; on the other
+//   shapes the kernel below.
 //
 // The bf16 instance (conv3x3_bf16: bf16 x, residual and y, f32 bias; the
 // Pallas kernel with act_bf16's operands) chooses the same way among
@@ -22,14 +25,17 @@
 // - C % 16 == 0, O % 8 == 0, O <= 64, W % 8 == 0, aligned: "wgmma_bf16"
 //   (conv3x3_wgmma_bf16.cu), bf16 products on the tensor cores with the
 //   weights resident in shared memory;
-// - everything else: "direct_bf16", the kernel below reading and writing
-//   bf16 and computing in f32 (a product of two bf16 values is exact in
-//   f32, so it computes what the TPU kernel does up to summation order).
+// - everything else: "direct_bf16", direct_f32's two kernels reading and
+//   writing bf16 and computing in f32 (a product of two bf16 values is
+//   exact in f32, so it computes what the TPU kernel does up to summation
+//   order).
 //
-// direct_f32. What bounds it: at C = 1 (the 1->64 input conv of
-// PostProcess) bytes, 64 output planes written for one read; at wide C
-// the f32 CUDA-core FMA rate (67 TFLOP/s, H100 SXM at 700 W), which is
-// why the wide shapes have left it for the tensor cores.
+// direct_f32's general kernel. What bounds it: at C = 1 (the 1->64 input
+// conv of PostProcess where its rows are unaligned) bytes, 64 output
+// planes written for one read; at wide C the f32 CUDA-core FMA rate (67
+// TFLOP/s, H100 SXM at 700 W), which is why the wide shapes have left it
+// for the tensor cores. Both kernels sum in the same order, so a shape
+// gets the same bits from either.
 //
 // Design (direct conv, no im2col in device memory):
 // - a block owns a TH x 32 tile of output pixels for OCB output channels
@@ -175,10 +181,12 @@ cudaError_t launch(const Args& a) {
 // a.w: the f32 weights as (C, 3, 3, O), i.e. OIHW permuted to (1, 2, 3, 0)
 template <typename T>
 cudaError_t launch_direct_t(const Args& a) {
+  if (direct_c1_takes(a.C, a.O, a.W, sizeof(T), aligned16(a)))  // bound by writes
+    return sizeof(T) == 4 ? launch_direct_c1(a) : launch_direct_c1_bf16(a);
   if (a.N > 65535 || (a.O + 7) / 8 > 65535) return cudaErrorInvalidValue;
   if (a.O <= 8)  // narrow heads: one oc group, 64x32 tiles
     return launch<8, 4, T>(a);
-  if (a.C == 1)  // input convs (1->64): no idle channels in a chunk
+  if (a.C == 1)  // input convs (1->64) on unaligned rows: no idle channels in a chunk
     return launch<64, 1, T>(a);
   return launch<64, 8, T>(a);  // 8x32 tiles x 64 output channels
 }

@@ -40,6 +40,9 @@ cudaError_t launch_wgmma(const Args& a);
 cudaError_t launch_direct_bf16(const Args& a);
 cudaError_t launch_head_bf16(const Args& a);
 cudaError_t launch_wgmma_bf16(const Args& a);
+// the C = 1 kernel of direct_f32 and direct_bf16 (conv3x3_direct_c1.cu)
+cudaError_t launch_direct_c1(const Args& a);
+cudaError_t launch_direct_c1_bf16(const Args& a);
 // Output channels after padding to a width the tensor-core variants have
 // (0: none).
 int tc_padded_o(int O);
@@ -51,6 +54,12 @@ inline bool aligned16(const Args& a) {
 // Whether the wgmma variant takes the shape (`aligned`: see aligned16).
 bool wgmma_takes(int C, int O, int W, bool aligned);
 bool wgmma_bf16_takes(int C, int O, int W, bool aligned);
+// Whether the direct variants take the shape to their C = 1 kernel: one
+// input channel, at most 64 outputs, rows of a 16-byte multiple
+// (`elem_bytes` an element) and tensors on 16 bytes.
+inline bool direct_c1_takes(int C, int O, int W, int elem_bytes, bool aligned) {
+  return C == 1 && O >= 1 && O <= 64 && (W * elem_bytes) % 16 == 0 && aligned;
+}
 
 inline int sm_count() {
   static int sms = 0;

@@ -25,7 +25,12 @@ The C side picks one of four variants from the shape (``variants_for``):
 - ``head_o1`` (O == 1): bound by bytes. Every thread works for the one
   output channel; the input planes stream through a ``cp.async`` ring;
 - ``direct_f32`` (the rest, C == 1 among them): a direct conv on the f32
-  CUDA cores.
+  CUDA cores, in two kernels chosen by shape: at C == 1, O <= 64 on
+  rows of a 16-byte multiple (the 1->64 input conv) a persistent kernel
+  bound by its writes, which stores whole rows of 16-byte vectors for all
+  O outputs (csrc/conv3x3_direct_c1.cu; ``direct_c1_launches`` counts
+  its launches); elsewhere the general kernel of csrc/conv3x3.cu. Both
+  sum in the same order, bit for bit.
 
 All are deterministic (fixed summation order, no atomics) and fuse bias,
 residual and activation into an f32 epilogue.
@@ -48,17 +53,18 @@ out), forward only, on three more variants:
 - ``head_bf16`` (O == 1): ``head_o1``'s kernel with a ring of the raw
   bf16 inputs (``cp.async``, four stages, two blocks an SM), converted
   where the FMAs read them; ``direct_bf16`` (the rest, C == 1 among
-  them): ``direct_f32`` reading and writing bf16. Both take f32 weights (the bf16 weights
-  upcast, exactly) and compute in f32; a product of two bf16 values is
-  exact in f32.
+  them): ``direct_f32``'s two kernels reading and writing bf16. Both take
+  f32 weights (the bf16 weights upcast, exactly) and compute in f32; a
+  product of two bf16 values is exact in f32.
 
 ``conv3x3`` launches a kernel for CUDA tensors, or raises; it runs the
 plain version ``conv3x3_plain`` only for tensors on the CPU. With grad
 mode on and an input that requires grad it goes through
 ``Conv3x3Function``, whose input gradient is a 3x3 'same' conv of the
-pre-activation gradient with the flipped, transposed weights and runs
-through the kernels again (a 64->64 conv's is 64->64, a 1->64 conv's is
-64->1 on ``head_o1``, a 64->1 conv's is 1->64 on ``direct_f32``); the
+pre-activation gradient with the flipped, transposed weights (cached
+on the weight tensor, ``flipped_weights``) and runs through the kernels
+again (a 64->64 conv's is 64->64, a 1->64 conv's is 64->1 on
+``head_o1``, a 64->1 conv's is 1->64 on ``direct_f32``); the
 Pallas kernel had no backward (it was inference-only), and the weight
 gradient is stock PyTorch, as XLA computed it for the JAX package.
 ``conv3x3_split_plain`` is the plain emulation of the three-product sum.
@@ -85,7 +91,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = tuple(os.path.join(CSRC, name) for name in
                 ("conv3x3.cu", "conv3x3_mma.cu", "conv3x3_wgmma.cu",
-                 "conv3x3_wgmma_bf16.cu", "conv3x3_head.cu"))
+                 "conv3x3_wgmma_bf16.cu", "conv3x3_head.cu",
+                 "conv3x3_direct_c1.cu"))
 HEADERS = tuple(os.path.join(CSRC, name) for name in
                 ("conv3x3_common.cuh", "conv3x3_hopper.cuh"))
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -174,6 +181,8 @@ def _load():
                           (lib.conv3x3_takes, 5), (lib.conv3x3_padded_o, 1)):
                 fn.argtypes = [ctypes.c_int] * n
                 fn.restype = ctypes.c_int
+            lib.conv3x3_direct_c1_launches.argtypes = [ctypes.c_int] * 2
+            lib.conv3x3_direct_c1_launches.restype = ctypes.c_longlong
             _lib = lib
     return _lib
 
@@ -393,8 +402,19 @@ def _forward(x, w, b, act, residual):
 def flipped_weights(w):
     """(C, O, 3, 3) weights of the input gradient of a 3x3 'same' conv
     with (O, C, 3, 3) weights ``w``: the taps flipped, the channels
-    swapped. dL/dx = conv3x3(dL/dy, flipped_weights(w)), no bias."""
-    return w.flip(2, 3).transpose(0, 1).contiguous()
+    swapped. dL/dx = conv3x3(dL/dy, flipped_weights(w)), no bias.
+
+    Cached on ``w`` like ``packed_weights``, keyed on its storage and
+    version: a second backward gets the same tensor, so its pack is cached
+    too; an in-place update (an optimizer step) flips anew."""
+    key = (w.data_ptr(), w._version, w.device)
+    with _lock:
+        hit = w.__dict__.get("_conv3x3_flipped")
+        if hit is not None and hit[0] == key:
+            return hit[1]
+        flipped = w.detach().flip(2, 3).transpose(0, 1).contiguous()
+        w.__dict__["_conv3x3_flipped"] = (key, flipped)
+    return flipped
 
 
 def weight_grad(x, w_shape, g):
@@ -489,6 +509,15 @@ def variants_for(c: int, o: int, width: int, dtype=torch.float32) -> list:
     return [first] + [name for name, v in VARIANTS.items()
                       if name != first and (name in BF16_VARIANTS) == bf16
                       and lib.conv3x3_takes(v, c, o, width, 1)]
+
+
+def direct_c1_launches(dtype=torch.float32, reset: bool = False) -> int:
+    """The launches of the direct variants' C = 1 kernel
+    (csrc/conv3x3_direct_c1.cu) in ``dtype``, as the C layer counts them
+    where it launches the kernel: so they tell which of ``direct_f32``'s
+    (or ``direct_bf16``'s) two kernels ran. ``reset`` sets the count to 0
+    once it is read."""
+    return _load().conv3x3_direct_c1_launches(int(dtype == torch.bfloat16), int(reset))
 
 
 def conv3x3_variant(name, x, w, b, act=None, residual=None):

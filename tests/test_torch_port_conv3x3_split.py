@@ -172,3 +172,24 @@ def test_pack_cache(layout, o_pad):
     # the OIHW layout is the tensor itself: nothing to pack
     assert c3.packed_weights(w, "oihw") is w
     assert c3.packed_weights.packs == before + 3
+
+
+def test_flipped_weights_cache():
+    """The input gradient's weights are flipped once a weight version: a
+    second call returns the same tensor (so its pack is cached too), an
+    in-place update flips anew."""
+    w = torch.nn.Conv2d(1, 64, 3, padding=1).weight
+    first = c3.flipped_weights(w)
+    assert first.shape == (1, 64, 3, 3) and not first.requires_grad
+    assert torch.equal(first, w.detach().flip(2, 3).transpose(0, 1))
+    assert c3.flipped_weights(w) is first
+    before = c3.packed_weights.packs
+    pack = c3.packed_weights(first, "direct")
+    assert c3.packed_weights(c3.flipped_weights(w), "direct") is pack
+    assert c3.packed_weights.packs == before + 1
+    with torch.no_grad():
+        w.mul_(0.5)  # an in-place update, as an optimizer step makes
+    second = c3.flipped_weights(w)
+    assert second is not first
+    assert torch.equal(second, w.detach().flip(2, 3).transpose(0, 1))
+    assert torch.equal(second, 0.5 * first)

@@ -22,7 +22,7 @@ import torch
 
 from learned_pmctf_tpu_torch.models.layers import init_params
 from learned_pmctf_tpu_torch.models.pwave import PWave
-from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
+from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain, packed_weights
 from learned_pmctf_tpu_torch.training.optim import make_optimizer
 from learned_pmctf_tpu_torch.training.steps import make_pwave_train_step
 
@@ -69,6 +69,31 @@ def test_conv3x3_function_on_card(c, o, act, res):
         grads[name] = [t.grad for t in leaves] + ([rr.grad] if res else [])
     for k, p in zip(grads["kernel"], grads["plain"]):
         assert _rel_err(k, p) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_second_backward_packs_nothing():
+    """The input gradient's flipped weights are cached on the weight, so
+    a second backward on the same weights packs nothing; an in-place
+    update packs anew."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for c, o in ((64, 1), (1, 64), (64, 64)):
+        w = (torch.randn(o, c, 3, 3, device="cuda", generator=g) / 24).requires_grad_()
+        b = torch.zeros(o, device="cuda", requires_grad=True)
+        x = torch.randn(2, c, 32, 64, device="cuda", generator=g, requires_grad=True)
+        packs = []
+        for _ in range(3):
+            before = packed_weights.packs
+            conv3x3(x, w, b).sum().backward()
+            torch.cuda.synchronize()
+            packs.append(packed_weights.packs - before)
+        assert packs[0] >= 1 and packs[1:] == [0, 0], (c, o, packs)
+        with torch.no_grad():
+            w.mul_(0.5)
+        before = packed_weights.packs
+        conv3x3(x, w, b).sum().backward()
+        assert packed_weights.packs > before, (c, o)
 
 
 @pytest.mark.cuda
