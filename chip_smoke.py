@@ -11,7 +11,7 @@ exits non-zero:
    turns TF32 off;
 2. build: compiles the conv3x3 CUDA kernels from csrc/ with nvcc (one
    nvcc a source, together) and reports ptxas' registers and spills;
-3. kernel: at the main path's seven shapes, at two shapes of the next
+3. kernel: at the main path's eight shapes, at two shapes of the next
    slice and at two 1->64 shapes off the path (a ragged plane with a
    residual and tanh; rows of no 16-byte multiple), holds every variant
    that takes the shape against the plain PyTorch version (1e-3) and a
@@ -38,8 +38,8 @@ exits non-zero:
    the card and on the CPU: each side decodes bit-exactly what it
    encoded, and the two sides' reconstructions agree;
 8. stream: the real-bitstream path at full width, the model and frames
-   of the slice phase: GOP-4 encode+decode (a warm-up, then 2 timed
-   runs), an encode-only run and a run with overlapped (asynchronous)
+   of the slice phase: GOP-4 encode+decode (a warm-up, then a timed
+   run), an encode-only run and a run with overlapped (asynchronous)
    decodes. Every decoded band and mv_hat must equal the encoder side bit
    for bit, every stream file's bytes must be the same in every run, and
    the conv3x3 launches are counted (encoder and decoder both run
@@ -55,7 +55,7 @@ exits non-zero:
    every front's positions;
 10. ar_stream_small_reference: phase 7 with the AR LL coder;
 11. ar_slice: the full-width pMCTF-L with the AR LL coder: the estimate
-   GOP-4 (warm-up, 3 timed runs) and the stream GOP-4 as in phase 8,
+   GOP-4 (warm-up, 2 timed runs) and the stream GOP-4 as in phase 8,
    with the LL fronts, the device-to-host copies and the seconds in the
    AR decoder counted;
 12. cli: the eval CLI (learned_pmctf_tpu_torch.cli.flex) in its own
@@ -116,6 +116,31 @@ exits non-zero:
 Phase 15 also times the stage-6 GOP-4 step with the fast warp (the
 trainer's default, cli/train_pmctf.py), with its idle share.
 
+21. lossless_small_reference: the small config's lossless (lossy=False)
+   GOP-4 at 64x64 on the card and on the CPU: both give the input frames
+   back exactly, the bits agree within 2e-3, the card's stream decodes
+   the input;
+22. lossless: full-width pMCTF-L, lossy=False, padded 1080p, q 10, exact
+   warp, f32: an estimate GOP-4 and a stream GOP-4 after a warm-up each;
+   the frames come back bit for bit, the two encodes write the same
+   bytes, no conv3x3 launch (no PostProcess); frames/s, bits per pixel,
+   peak memory, the largest band symbol against the coder's clip;
+23. q_batch: a full-width GOP-4 at q 0, 7, 14 and 20 as one batch
+   (PMCTFCodec.estimate_one_stage_multi, inverse_mctf_multi) against the
+   four single-q GOPs: bits rel 1e-4, frames 5e-2, 120 conv3x3 launches
+   (N = 4 luma, 8 chroma), timed beside the four;
+24. ca_cli: the content-adaptive CLI (learned_pmctf_tpu_torch.cli.ca) in
+   its own process, full width, 16 synthetic 256x256 frames, streams:
+   exit code, one (GOP, factor) choice, finite bits and PSNRs, every
+   decoded pair bit-equal to the encoder side;
+25. extra_modules: PostProcessCtx, the layers_extra convs and
+   CompressionModel on the card against the CPU with the same weights.
+Phases 21-25 run after phase 20. Within the script's time, phases 8 and
+11 time one encode+decode run, phase 11 two estimate GOPs, and phases 15
+and 16 two GOP-4 or pWave steps and one GOP-16 step.
+
+``python3 chip_smoke.py --only lossless,q_batch`` runs phases 1-2 and the
+named phases of 21-25 alone (names as their JSON lines give them).
 ``python3 chip_smoke.py --kernels`` runs phases 1-3 and 18 alone, and
 ``python3 chip_smoke.py --kernels --ab DIR`` then times the variants of
 both kernel phases' main-path shapes and of the training 1->64 input
@@ -129,7 +154,9 @@ Then it prints the variants the main path did not take, the kernels line
 GOP-4 for the f32 variants and the bench configuration's GOP-4 for the
 bf16 ones, ``stream_launches`` the stream GOP-4, ``ar_launches`` and
 ``ar_stream_launches`` the same with the AR LL coder, ``train_launches``
-a GOP-4 train step, ``bench_launches`` the bench configuration's GOP-4;
+a GOP-4 train step, ``bench_launches`` the bench configuration's GOP-4,
+``lossless_launches`` the lossless GOPs (none) and ``q_batch_launches``
+the q-batched GOP-4;
 each path launches exactly its variants: the f32 paths the f32 ones, the
 bench the bf16 ones, and every launch of a direct variant on a path runs
 its C = 1 kernel, as the C layer counts them) and, last, {"ok": true,
@@ -398,7 +425,7 @@ def measure_conv(label, n, c, o, hh, ww, act, res, g):
 
 
 def f32_cases():
-    """The seven shapes of the main path, then two shapes the main path
+    """The eight shapes of the main path, then two shapes the main path
     does not send to the kernel yet (the four-step priors' 112 and 128
     channels at the level-1 subband plane), measured for the next slice."""
     h, w = LUMA
@@ -410,6 +437,7 @@ def f32_cases():
         ("chroma 64->64 leaky_relu", 2, 64, 64, h // 2, w // 2, "leaky_relu", False),
         ("chroma 64->64 residual", 2, 64, 64, h // 2, w // 2, None, True),
         ("chroma 1->64", 2, 1, 64, h // 2, w // 2, None, False),
+        ("chroma 64->1", 2, 64, 1, h // 2, w // 2, None, False),
         ("subband 112->112 leaky_relu (off the main path)", 1, 112, 112,
          h // 2, w // 2, "leaky_relu", False),
         ("subband 128->128 leaky_relu (off the main path)", 1, 128, 128,
@@ -725,10 +753,10 @@ def counted(path):
     return by_variant
 
 
-def timed_code_gop(model, luma, chroma):
+def timed_code_gop(model, luma, chroma, runs=3):
     """The estimate GOP: a warm-up, a run whose conv3x3 launches are
-    counted (a GOP-4 reconstructs 2 planes a frame), then 3 timed runs.
-    Returns the counted run's output and the numbers."""
+    counted (a GOP-4 reconstructs 2 planes a frame), then `runs` timed
+    runs. Returns the counted run's output and the numbers."""
     from learned_pmctf_tpu_torch.gop import code_gop
     from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3
     h, w = LUMA
@@ -749,7 +777,7 @@ def timed_code_gop(model, luma, chroma):
     check_outputs(out, h, w)
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(3):
+    for _ in range(runs):
         t = time.perf_counter()
         run()
         times.append((time.perf_counter() - t) * 1e3)
@@ -950,7 +978,7 @@ def stream_ar_expect(model):
 
 def stream_runs(model, luma, chroma, est_bits, ll_mode="fourstep"):
     """The real-bitstream GOP-4 at full width (see the module docstring):
-    a warm-up and 2 timed encode+decode runs, an encode-only run, an
+    a warm-up and a timed encode+decode run, an encode-only run, an
     overlapped-decode run and two profiled GOPs. Returns the phase's
     numbers and the launches by variant of one encode+decode run."""
     from learned_pmctf_tpu_torch.codec.video_codec import PMCTFCodec
@@ -1013,7 +1041,7 @@ def stream_runs(model, luma, chroma, est_bits, ll_mode="fourstep"):
     try:
         run("warmup")
         torch.cuda.reset_peak_memory_stats()
-        timed = [run(f"run{i}") for i in range(2)]
+        timed = [run(f"run{i}") for i in range(1)]
         peak = torch.cuda.max_memory_allocated()
         out, _, by_variant = timed[0]
         stats = dict(timed[-1][1], ms=statistics.median(s["ms"] for _, s, _ in timed))
@@ -1180,7 +1208,7 @@ def phase_ar_slice(smi):
     h, w = LUMA
     model = unit_gain_ar(build_pmctf("cuda", seed=0, num_me_stages=4, ll_mode="ar"))
     luma, chroma = synthetic_gop(GOP, h, w, "cuda")
-    out, est = timed_code_gop(model, luma, chroma)
+    out, est = timed_code_gop(model, luma, chroma, runs=2)
     stream, stream_by_variant = stream_runs(model, luma, chroma, out["bits"],
                                             ll_mode="ar")
     emit({"phase": "ar_slice", "estimate": est, "stream": stream, "card": smi})
@@ -1790,8 +1818,8 @@ def phase_train_pmctf(smi):
     """Full-width pMCTF-L (train_pmctf.py's model: num_me_stages 2) at the
     trainer's defaults (batch 8, 128x128 luma, exact warp), seeded:
     curriculum stage 6 (GOP-4, part All, quant_stage on; a warm-up whose
-    launches are counted, 3 timed steps, the weight-gradient A/B) and
-    stage 8 (GOP-16; a counted warm-up, 2 timed steps), then a profile of
+    launches are counted, 2 timed steps, the weight-gradient A/B) and
+    stage 8 (GOP-16; a counted warm-up, 1 timed step), then a profile of
     one GOP-4 step."""
     from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
     from learned_pmctf_tpu_torch.training.curriculum import PART_PREDICATES
@@ -1808,7 +1836,7 @@ def phase_train_pmctf(smi):
            "parameters": sum(p.numel() for p in model.parameters())}
     step4 = make_pmctf_train_step(model, opt, 4, StageGates.for_stage(5))
     frames4 = train_frames(4, TRAIN_BATCH, TRAIN_PATCH, seed=11)
-    gop4 = timed_train_steps(step4, frames4, noise, 3, train_launch_expect(4, w))
+    gop4 = timed_train_steps(step4, frames4, noise, 2, train_launch_expect(4, w))
     gop4["frames_per_s"] = TRAIN_BATCH * 4 / (gop4["step_ms"] / 1e3)
     # a step packs each PostProcess weight of both coders once after the
     # optimizer changed it (13 wgmma, 1 direct a coder) and the flipped
@@ -1824,7 +1852,7 @@ def phase_train_pmctf(smi):
     row["gop4_stage6_fast_warp"] = fast_warp_steps(model, opt, step4, frames4, noise, w)
     step16 = make_pmctf_train_step(model, opt, 16, StageGates.for_stage(7))
     frames16 = train_frames(16, TRAIN_BATCH, TRAIN_PATCH, seed=12)
-    gop16 = timed_train_steps(step16, frames16, noise, 2, train_launch_expect(16, w))
+    gop16 = timed_train_steps(step16, frames16, noise, 1, train_launch_expect(16, w))
     gop16["frames_per_s"] = TRAIN_BATCH * 16 / (gop16["step_ms"] / 1e3)
     gop16["weight_packs_reckoned"] = 14 * (2 + 16)
     row["gop16_stage8"] = gop16
@@ -1839,10 +1867,10 @@ def fast_warp_steps(model, opt, step, frames, noise, w):
     """The stage-6 GOP-4 step with the fast warp, cli/train_pmctf.py's
     default (the same model with warp_mode "fast" in the temporal lifting
     and SpyNet's pyramid, as build_pmctf(warp_mode="fast") makes it): a
-    counted warm-up, 3 timed steps, finite gradients, a profiled step."""
+    counted warm-up, 2 timed steps, finite gradients, a profiled step."""
     model.warp_mode, model.optic_flow.fast_warp = "fast", True
     try:
-        out = timed_train_steps(step, frames, noise, 3, train_launch_expect(4, w))
+        out = timed_train_steps(step, frames, noise, 2, train_launch_expect(4, w))
         out["frames_per_s"] = TRAIN_BATCH * 4 / (out["step_ms"] / 1e3)
         out["grad_norms"] = norms = grad_norms(model)
         if not all(0 < v < float("inf") for v in norms.values()):
@@ -1933,7 +1961,7 @@ def phase_train_pwave(smi):
     """Full-width pWave (features 112, four-step LL) at train_pwave.py's
     defaults (batch 16, 256x256; AdamW, weight decay 0.05, clip 1): a
     warm-up whose launches are counted (15 forward, 15 for the input
-    gradients: no recomputation), 3 timed steps, peak memory."""
+    gradients: no recomputation), 2 timed steps, peak memory."""
     from learned_pmctf_tpu_torch.models.layers import init_params
     from learned_pmctf_tpu_torch.models.pwave import PWave
     from learned_pmctf_tpu_torch.training.optim import make_optimizer
@@ -1961,7 +1989,7 @@ def phase_train_pwave(smi):
                              f"{expect}; PostProcess gradients {post}")
     torch.cuda.reset_peak_memory_stats()
     times, m = [], None
-    for _ in range(3):
+    for _ in range(2):
         t = time.perf_counter()
         m = run()
         times.append((time.perf_counter() - t) * 1e3)
@@ -2085,6 +2113,339 @@ VARIANT_ROWS = {
 MAIN_PATH = {"f32": "launches", "bf16": "bench_launches"}
 
 
+# ---- the lossless configuration, the q-batched estimate path, the CA CLI,
+# the modules nothing builds (phases 21-25) ------------------------------------
+
+LOSSLESS_BITS_REL = 2e-3  # a rounded lifting increment may flip between devices
+EXTRA_TOL = 1e-4  # of the output's largest magnitude: cuDNN f32 against the CPU's
+
+
+def lossless_gop(n, h, w, device, seed=0):
+    """synthetic_gop's frames rounded to integers (lossless coding gives
+    integer planes back exactly)."""
+    luma, chroma = synthetic_gop(n, h, w, device, seed)
+    return [torch.round(f) for f in luma], [torch.round(f) for f in chroma]
+
+
+def check_lossless(out, luma, chroma, what):
+    for fi in range(len(luma)):
+        for got, want in ((out["luma"][fi], luma[fi]), (out["chroma"][fi], chroma[fi])):
+            if not torch.equal(got.to(want.device), want):
+                err = float((got.to(want.device) - want).abs().max())
+                raise AssertionError(f"{what}: frame {fi} differs from the input by {err}")
+
+
+def phase_lossless_small_reference():
+    """The small config's lossless GOP-4 at 64x64 on the card and on the
+    CPU: both reconstruct the input exactly, the estimate's bits agree
+    within LOSSLESS_BITS_REL, and the card's stream decodes the input."""
+    from learned_pmctf_tpu_torch.codec.video_codec import PMCTFCodec
+    from learned_pmctf_tpu_torch.gop import code_gop, stream_gop
+    from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
+    cfg = dict(decomp_levels=2, num_me_stages=2, channel_mv=8, channel_n=8,
+               features=16, ar_features=16, lossy=False)
+    luma, chroma = lossless_gop(GOP, 64, 64, "cpu", seed=1)
+    on_cpu = code_gop(build_pmctf("cpu", seed=1, **cfg), luma, chroma, 10.0, device="cpu")
+    card_model = build_pmctf("cuda", seed=1, **cfg)
+    on_card = code_gop(card_model, luma, chroma, 10.0)
+    check_lossless(on_cpu, luma, chroma, "lossless small GOP-4 on the CPU")
+    check_lossless(on_card, luma, chroma, "lossless small GOP-4 on the card")
+    worst = 0.0
+    for fi, bits in on_cpu["bits"].items():
+        for key, r in bits.items():
+            rel = abs(on_card["bits"][fi][key] - r) / max(abs(r), 1.0)
+            worst = max(worst, rel)
+            if rel > LOSSLESS_BITS_REL:
+                raise AssertionError(f"lossless small: frame {fi} {key} "
+                                     f"{on_card['bits'][fi][key]} vs {r}")
+    with tempfile.TemporaryDirectory() as d, PMCTFCodec(card_model) as codec:
+        codec.update()
+        streamed = stream_gop(codec, luma, chroma, 10.0, d, psize=64)
+    check_stream(streamed, "lossless small stream")
+    check_lossless(streamed, [f.cuda() for f in luma], [f.cuda() for f in chroma],
+                   "lossless small stream on the card")
+    emit({"phase": "lossless_small_reference", "gop": GOP, "size": [64, 64],
+          "bits_max_rel_diff": worst, "bits_rel_tol": LOSSLESS_BITS_REL,
+          "reconstructions_equal_input": True, "stream_decodes_input": True})
+
+
+def phase_lossless(smi):
+    """Full-width pMCTF-L with lossy=False (bench.py:57's widths), padded
+    1080p, q 10, exact warp, f32: an estimate GOP-4 and a stream GOP-4,
+    each after a warm-up. The frames come back bit for bit, the stream's
+    bytes are the same in both encodes, and PostProcess never runs (no
+    conv3x3 launch)."""
+    from learned_pmctf_tpu_torch.codec.video_codec import PMCTFCodec
+    from learned_pmctf_tpu_torch.entropy.coder import SYMBOL_CLIP
+    from learned_pmctf_tpu_torch.gop import code_gop, stream_gop
+    from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
+    from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3
+    h, w = LUMA
+    model = build_pmctf("cuda", seed=0, num_me_stages=4, lossy=False)
+    luma, chroma = lossless_gop(GOP, h, w, "cuda")
+    code_gop(model, luma, chroma, 10.0)  # warm-up
+    torch.cuda.synchronize()
+    count_from_zero()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = code_gop(model, luma, chroma, 10.0)
+    torch.cuda.synchronize()
+    est_ms = (time.perf_counter() - t) * 1e3
+    est_peak = torch.cuda.max_memory_allocated()
+    launches, by_variant = conv3x3.launches, counted("lossless estimate GOP-4")
+    check_lossless(out, luma, chroma, "lossless estimate GOP-4")
+    est_bits = sum(v for b in out["bits"].values() for v in b.values())
+
+    root = tempfile.mkdtemp(prefix="pmctf_lossless_")
+    files = []
+    try:
+        with PMCTFCodec(model) as codec:
+            codec.update()
+            for name in ("warmup", "timed"):
+                d = os.path.join(root, name)
+                os.makedirs(d)
+                codec.stats.reset()
+                count_from_zero()
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                streamed = stream_gop(codec, luma, chroma, 10.0, d)
+                torch.cuda.synchronize()
+                stream_ms = (time.perf_counter() - t) * 1e3
+                launches += conv3x3.launches
+                by_variant.update(counted(f"lossless stream {name}"))
+                check_stream(streamed, f"lossless stream {name}")
+                check_lossless(streamed, luma, chroma, f"lossless stream {name}")
+                files.append(stream_files(d))
+            stream_peak = torch.cuda.max_memory_allocated()
+            symbol_peak = codec.stats.symbol_peak
+    finally:
+        shutil.rmtree(root)
+    if files[0] != files[1]:
+        raise AssertionError("lossless stream: bytes differ between the two encodes")
+    if launches or by_variant:
+        raise AssertionError(f"lossless paths launched conv3x3 {launches} times: {by_variant}")
+    stream_bits = sum(v for b in streamed["bits"].values() for v in b.values())
+    emit({"phase": "lossless", "model": "pMCTF-L full width (seeded random weights), lossy=False",
+          "gop": GOP, "luma": [h, w], "q_index": 10, "warp_mode": "exact",
+          "estimate_gop_ms": est_ms, "estimate_frames_per_s": GOP / (est_ms / 1e3),
+          "estimate_bpp": est_bits / (GOP * h * w), "estimate_peak_mem_bytes": est_peak,
+          "stream_gop_ms": stream_ms, "stream_frames_per_s": GOP / (stream_ms / 1e3),
+          "stream_bpp": stream_bits / (GOP * h * w), "stream_peak_mem_bytes": stream_peak,
+          "stream_file_bytes": {f: len(b) for f, b in files[1].items()},
+          "bytes_identical_across_encodes": True, "decoded_equals_input": True,
+          "lossless_launches": launches, "max_abs_symbol": symbol_peak,
+          "symbol_clip": SYMBOL_CLIP, "symbols_at_clip": symbol_peak >= SYMBOL_CLIP,
+          "card": smi})
+    del model, luma, chroma, out, streamed
+    torch.cuda.empty_cache()
+    return by_variant
+
+
+Q_BATCH = (0, 7, 14, 20)
+
+
+def q_batch_gop(codec, luma, chroma, qs):
+    """The estimate GOP-4 of len(qs) rate points as one batch
+    (estimate_one_stage_multi, inverse_mctf_multi): per-frame bits (E,)
+    and the frames with their leading element axis."""
+    from learned_pmctf_tpu_torch.gop import gop_schedule
+    from learned_pmctf_tpu_torch.models.pmctf import empty_dpb
+    n = len(qs)
+    fr = [(y[None].expand(n, *y.shape).contiguous(), c[None].expand(n, *c.shape).contiguous())
+          for y, c in zip(luma, chroma)]
+    sched = gop_schedule(len(fr))
+    mvs, bits = [None] * len(fr), {}
+    cur_stage, dpb = -1, None
+    for stage, fi, step, code_lt in sched:
+        if stage != cur_stage:
+            cur_stage, dpb = stage, empty_dpb()
+        st = codec.model.me_index(stage)
+        res = codec.estimate_one_stage_multi(fr[fi], fr[fi + step], code_lt, dpb, list(qs),
+                                             stage_idx=st)
+        dpb = res["dpb"]
+        fr[fi], fr[fi + step] = (res["L_t"], res["L_tc"]), (res["H_t"], res["H_tc"])
+        mvs[fi + step] = res["mv_hat"]
+        bits[fi + step] = {"bit_H": res["bit_H"], "bit_ME": res["bit_ME"]}
+        if code_lt:
+            bits[fi] = {"bit_L": res["bit_L"]}
+    for stage, fi, step, _ in reversed(sched):
+        st = codec.model.me_index(stage)
+        ry, cy = codec.inverse_mctf_multi(fr[fi][0], fr[fi + step][0], mvs[fi + step],
+                                          stage_idx=st)
+        rc, cc = codec.inverse_mctf_multi(fr[fi][1], fr[fi + step][1], mvs[fi + step],
+                                          stage_idx=st, downscale=True)
+        fr[fi], fr[fi + step] = (ry, rc), (cy, cc)
+    return bits, fr
+
+
+def phase_q_batch(smi):
+    """A full-width GOP-4 (padded 1080p) at Q_BATCH's four rate points as
+    one batch against the four single-q GOPs: bits rel 1e-4, frames 5e-2;
+    PostProcess runs once a plane for all rate points (N = Q luma, 2Q
+    chroma), 120 conv3x3 launches as one GOP-4."""
+    from learned_pmctf_tpu_torch.codec.video_codec import PMCTFCodec
+    from learned_pmctf_tpu_torch.gop import code_gop
+    from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
+    from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3
+    h, w = LUMA
+    model = build_pmctf("cuda", seed=0, num_me_stages=4)
+    with torch.no_grad():  # the rate points differ as the CLI's spread makes them
+        for coder in (model.lp_coder, model.hp_coder):
+            for qp in (coder.QP, coder.QP_ll):
+                qp.copy_(torch.tensor([0.02, 0.5]).reshape(2, 1, 1, 1))
+    luma, chroma = synthetic_gop(GOP, h, w, "cuda")
+    with PMCTFCodec(model) as codec:
+        q_batch_gop(codec, luma, chroma, Q_BATCH)  # warm-up
+        torch.cuda.synchronize()
+        count_from_zero()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        bits, frames = q_batch_gop(codec, luma, chroma, Q_BATCH)
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+    launches, by_variant = conv3x3.launches, counted("q-batched GOP-4")
+    expected = postprocess_launches(w, 2 * GOP)
+    if launches != 15 * 2 * GOP or by_variant != expected:
+        raise AssertionError(f"q batch: conv3x3 launched {launches} times, by variant "
+                             f"{by_variant}, expected {expected}")
+    single_ms, worst_bits, worst_plane = [], 0.0, 0.0
+    for e, q in enumerate(Q_BATCH):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        one = code_gop(model, luma, chroma, float(q))
+        torch.cuda.synchronize()
+        single_ms.append((time.perf_counter() - t) * 1e3)
+        for fi, b in one["bits"].items():
+            for key, r in b.items():
+                rel = abs(float(bits[fi][key][e]) - r) / max(abs(r), 1.0)
+                worst_bits = max(worst_bits, rel)
+                if rel > 1e-4:
+                    raise AssertionError(f"q batch: q {q} frame {fi} {key} "
+                                         f"{bits[fi][key][e]} vs {r}")
+        for fi in range(GOP):
+            for got, want in ((frames[fi][0][e], one["luma"][fi]),
+                              (frames[fi][1][e], one["chroma"][fi])):
+                worst_plane = max(worst_plane, float((got - want).abs().max()))
+        if worst_plane >= 5e-2:
+            raise AssertionError(f"q batch: q {q} frames differ by {worst_plane}")
+    emit({"phase": "q_batch", "model": "pMCTF-L full width (seeded random weights)",
+          "gop": GOP, "luma": [h, w], "q_indexes": list(Q_BATCH),
+          "batch_gop_ms": batch_ms, "single_gop_ms": single_ms,
+          "single_gop_ms_sum": sum(single_ms),
+          "batch_frames_per_s": GOP * len(Q_BATCH) / (batch_ms / 1e3),
+          "peak_mem_bytes": peak, "conv3x3_launches": launches,
+          "conv3x3_launches_by_variant": by_variant,
+          "bits_max_rel_diff": worst_bits, "frames_max_abs_diff": worst_plane,
+          "card": smi})
+    del model, luma, chroma, frames
+    torch.cuda.empty_cache()
+    return by_variant
+
+
+def phase_ca_cli(smi):
+    """The content-adaptive CLI as a user runs it, in its own process:
+    full width, 16 synthetic 256x256 frames, one GOP-16 chunk searched
+    over GOP sizes {16, 8, 4} and ME factors {1, 2, 4}, every trial
+    written to streams and decoded (the CLI stops on a decoded plane that
+    differs from the encoder side)."""
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m", "learned_pmctf_tpu_torch.cli.ca",
+               "--synthetic", "16", "--synthetic_size", "256x256",
+               "--force_intra_period", "16", "--q_index", "10", "--num_me_stages", "4",
+               "--write_stream", "1", "--verbose", "1",
+               "--output_path", os.path.join(d, "ca.json"),
+               "--stream_path", os.path.join(d, "bin")]
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        wall_s = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"ca exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+                                 f"\n{proc.stderr[-3000:]}")
+        with open(os.path.join(d, "ca.json")) as f:
+            log = json.load(f)["synthetic_ds"]["synthetic"]
+    checked = re.findall(r"decoded pairs bit-exact: (\d+)", proc.stdout)
+    vals = log["frame_bpp"] + log["frame_psnr"]
+    if not (len(log["gop_choice"]) == len(log["ds_choice"]) == 1
+            and log["gop_choice"][0] in (16, 8, 4) and log["ds_choice"][0] in (1, 2, 4)
+            and all(v == v and abs(v) != float("inf") for v in vals)
+            and all(b > 0 for b in log["frame_bpp"]) and checked and int(checked[-1]) > 0):
+        raise AssertionError(f"ca: bad log {log} or no decode checks:\n{proc.stdout[-2000:]}")
+    emit({"phase": "ca_cli", "command": " ".join(cmd[1:]), "wall_s": wall_s,
+          "gop_choice": log["gop_choice"], "ds_choice": log["ds_choice"],
+          "tested_opts": log["tested_opts"], "pairs_decoded_bit_exact": int(checked[-1]),
+          "ave_all_frame_bpp": log["ave_all_frame_bpp"],
+          "ave_all_frame_psnr": log["ave_all_frame_psnr"], "card": smi})
+
+
+def _relative_err(got, want):
+    return float((got.cpu() - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def phase_extra_modules(smi):
+    """The modules no model builds, at full width on the card against the
+    CPU with the same weights: PostProcessCtx (stock convs; no kernel
+    route, so no launch), the layers_extra convs with and without their
+    masks, and CompressionModel's bits and tables."""
+    from learned_pmctf_tpu_torch.entropy.bit_estimator import BitEstimator
+    from learned_pmctf_tpu_torch.entropy.compression_model import CompressionModel
+    from learned_pmctf_tpu_torch.models import layers_extra as extra
+    from learned_pmctf_tpu_torch.models.postprocess import PostProcessCtx
+    from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3
+    g = torch.Generator().manual_seed(7)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g)
+
+    cases = {
+        "PostProcessCtx": (PostProcessCtx(), (rand(1, 1, 256, 256) * 40, rand(1, 64, 256, 256))),
+        "DynamicDWConv": (extra.DynamicDWConv(64), (rand(2, 64, 64, 64),)),
+        "MaskedDynamicDWConv": (extra.MaskedDynamicDWConv(64, mask_type="B"),
+                                (rand(2, 64, 64, 64),)),
+        "ConditionalConv": (extra.ConditionalConv(64, 64), (rand(2, 64, 64, 64),
+                                                            torch.eye(5)[[1, 3]])),
+        "ConditionalConv_A": (extra.ConditionalConv(64, 64, mask_type="A"),
+                              (rand(2, 64, 64, 64), torch.eye(5)[[0, 4]])),
+        "Conv3d": (extra.Conv3d(16, 16), (rand(1, 16, 8, 64, 64),)),
+        "Conv3d_B": (extra.Conv3d(16, 16, mask_type="B"), (rand(1, 16, 8, 64, 64),)),
+    }
+    errs = {}
+    count_from_zero()
+    for name, (module, inputs) in cases.items():
+        with torch.no_grad():
+            for p in module.parameters():  # every weight, bias and norm drawn
+                p.copy_(0.05 * torch.randn(p.shape, generator=g))
+            want = module(*inputs)
+            got = module.cuda()(*[x.cuda() for x in inputs])
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        errs[name] = max(_relative_err(a, b) for a, b in zip(got, want))
+        if errs[name] > EXTRA_TOL:
+            raise AssertionError(f"{name}: card against CPU {errs[name]}")
+    if conv3x3.launches:
+        raise AssertionError(f"the extra modules launched conv3x3 {conv3x3.launches} times")
+    est = BitEstimator(64)
+    for p in est.parameters():
+        torch.nn.init.normal_(p, 0.0, 0.3, generator=g)
+    y = torch.round(rand(1, 64, 64, 64) * 6)
+    scales = torch.exp(rand(1, 64, 64, 64))
+    for dist in ("laplace", "gaussian"):
+        cm = CompressionModel(dist)
+        cm.update()
+        with torch.no_grad():
+            errs[f"CompressionModel_{dist}_y_bits"] = _relative_err(
+                cm.get_y_bits(y.cuda(), scales.cuda()), cm.get_y_bits(y, scales))
+            errs[f"CompressionModel_{dist}_z_bits"] = _relative_err(
+                cm.get_z_bits(y.cuda(), est.cuda().get_cdf), cm.get_z_bits(y, est.cpu().get_cdf))
+    for name, err in errs.items():
+        if name.startswith("CompressionModel") and err > 1e-3:
+            raise AssertionError(f"{name}: card against CPU {err}")
+    emit({"phase": "extra_modules", "max_rel_err_card_vs_cpu": errs,
+          "tol": {"modules": EXTRA_TOL, "bits": 1e-3}, "conv3x3_launches": 0, "card": smi})
+
+
 def kernel_entries(rows, rows_bf16, launches):
     """One entry a variant: the variant's numbers at the shape that stands
     for it, whether the shape took it or timed it beside its own.
@@ -2119,20 +2480,35 @@ def kernel_entries(rows, rows_bf16, launches):
 
 def check_paths(launches):
     """Each path launches exactly its variants: the f32 paths the f32
-    ones the estimate launches, the bench the bf16 ones."""
+    ones the estimate launches, the bench the bf16 ones, the lossless
+    paths none (no PostProcess)."""
     f32 = set(launches["launches"])
     if f32 & set(BF16_VARIANTS) or set(launches["bench_launches"]) != set(BF16_VARIANTS):
         raise AssertionError(f"the estimate or the bench launched the other dtype's "
                              f"variants: {launches}")
+    if launches["lossless_launches"]:
+        raise AssertionError(f"the lossless paths launched {launches['lossless_launches']}")
     for path, by_variant in launches.items():
+        if path == "lossless_launches":
+            continue
         want = set(BF16_VARIANTS) if path == "bench_launches" else f32
         if set(by_variant) != want or not all(by_variant.values()):
             raise AssertionError(f"{path} launched {by_variant}, expected {sorted(want)}")
 
 
+# phases 21-25 by name, for ``--only``
+NEW_PHASES = {"lossless_small_reference": lambda smi: phase_lossless_small_reference(),
+              "lossless": phase_lossless, "q_batch": phase_q_batch,
+              "ca_cli": phase_ca_cli, "extra_modules": phase_extra_modules}
+
+
 def main(argv):
     smi = phase_device()
     ptxas = phase_build()
+    if "--only" in argv:
+        for name in argv[argv.index("--only") + 1].split(","):
+            NEW_PHASES[name](smi)
+        return 0
     rows = phase_kernel()
     rows_bf16 = phase_kernel_bf16(ptxas)
     if "--kernels" in argv:
@@ -2156,14 +2532,23 @@ def main(argv):
     phase_train_cli(smi)
     phase_bench_small_reference()
     bench_by_variant = phase_bench(smi)
+    phase_lossless_small_reference()
+    lossless_by_variant = phase_lossless(smi)
+    q_batch_by_variant = phase_q_batch(smi)
+    phase_ca_cli(smi)
+    phase_extra_modules(smi)
     # launches by path: the estimate GOP-4 ("launches"), the stream GOP-4,
     # both again with the AR LL coder, a GOP-4 train step (forward,
-    # recompute and input gradients), and the bench configuration's GOP-4
+    # recompute and input gradients), the bench configuration's GOP-4,
+    # the lossless estimate and stream GOP-4s (none) and the q-batched
+    # GOP-4 (four rate points)
     launches = {"launches": by_variant, "stream_launches": stream_by_variant,
                 "ar_launches": ar_by_variant,
                 "ar_stream_launches": ar_stream_by_variant,
                 "train_launches": train_by_variant,
-                "bench_launches": bench_by_variant}
+                "bench_launches": bench_by_variant,
+                "lossless_launches": lossless_by_variant,
+                "q_batch_launches": q_batch_by_variant}
     check_paths(launches)
     entries = kernel_entries(rows, rows_bf16, launches)
     on_path = [e for e in entries if e["launches"] > 0]

@@ -5,7 +5,12 @@ package's test_pmctf_flex.py writes them (the same file names and keys).
 Per GOP: the forward MCTF ladder pair by pair, each pair entropy-estimated
 (PMCTFCodec.estimate_one_stage) or, with --write_stream, encoded to rANS
 streams and decoded again (PMCTFCodec.encode_one_stage); then the inverse
-ladder and the frame metrics. Runs on CUDA unless --device cpu.
+ladder and the frame metrics. With --q_batch (and more than one q index)
+or --seq_batch the estimate path codes every rate point, and up to
+--seq_batch sequences of one geometry, as one batch
+(PMCTFCodec.estimate_one_stage_multi), reading each sequence once.
+--lossless codes with the lossless model (PSNR then reads inf, as the
+JAX CLI writes it). Runs on CUDA unless --device cpu.
 
     python -m learned_pmctf_tpu_torch.cli.flex --model_path ckpt.pth \\
         --test_config configs/dataset_config.json --force_intra_period 16 \\
@@ -45,10 +50,7 @@ Q_INDEX_NUM_TOTAL = 21
 # options of the JAX CLI that the port does not have yet, and the
 # ROADMAP.md item that brings each
 NOT_YET = {
-    "q_batch": "A.12 (the q-batched estimate path)",
-    "seq_batch": "A.12 (the q-batched estimate path)",
     "shard_q": "A.14 (multi-device)",
-    "lossless": "A.11 (opt-in variants: the lossless configuration)",
 }
 
 
@@ -102,11 +104,14 @@ def parse_args(argv):
                    help="temporal-lifting warp: 'exact' = reference bilinear "
                         "semantics, 'fast' = the separable warp (throughput)")
     p.add_argument("--q_batch", type=str2bool, nargs="?", const=True,
-                   default=False, help="not ported yet (ROADMAP.md A.12)")
+                   default=False,
+                   help="code all q indexes as one batch (estimate path "
+                        "only): the sequence is read and coded once")
     p.add_argument("--shard_q", type=str2bool, nargs="?", const=True,
                    default=False, help="not ported yet (ROADMAP.md A.14)")
     p.add_argument("--seq_batch", type=int, default=0,
-                   help="not ported yet (ROADMAP.md A.12)")
+                   help="estimate path only: code up to N sequences of one "
+                        "geometry together in the q batch")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default; raises without a card) or 'cpu'")
     args = p.parse_args(argv)
@@ -130,7 +135,7 @@ def build_codec(args) -> PMCTFCodec:
         args.ll_mode = "ar"
     model = build_pmctf(
         device, seed=0, decomp_levels=args.decomp_levels,
-        num_me_stages=args.num_me_stages,
+        lossy=not args.lossless, num_me_stages=args.num_me_stages,
         ll_mode=args.ll_mode, features=args.features,
         ar_features=args.ar_features, channel_mv=args.channel_mv,
         channel_n=args.channel_mv, warp_mode=args.warp_mode)
@@ -323,6 +328,125 @@ def run_test(codec: PMCTFCodec, args, logger=print):
     return log
 
 
+@torch.no_grad()
+def run_test_qbatch(codec: PMCTFCodec, seq_args, q_list, logger=print):
+    """The estimate path for sequences x q indexes as one batch: element
+    e = s * Q + qi codes sequence s at q_list[qi]. seq_args: the
+    per-sequence dicts of run_test, of one geometry. Returns one
+    {q_idx: log} a sequence, as run_test would give them one by one,
+    reading and coding every sequence once."""
+    dev = codec.device
+    args = seq_args[0]
+    n_seq, n_q = len(seq_args), len(q_list)
+    n = n_seq * n_q
+    for other in seq_args[1:]:
+        if ((other["src_height"], other["src_width"], other["gop_size"],
+             other["frame_num"]) != (args["src_height"], args["src_width"],
+                                     args["gop_size"], args["frame_num"])):
+            raise ValueError("seq_batch groups must share their geometry")
+    q_vec = [q for _ in range(n_seq) for q in q_list]
+    frame_num_eval = args["frame_num"]
+    gop_size = args["gop_size"]
+    sched = gop_schedule(gop_size)
+    frame_num = frame_num_eval
+    if frame_num_eval % gop_size:
+        frame_num += gop_size - frame_num_eval % gop_size
+    gop_num = frame_num // gop_size
+    height, width = args["src_height"], args["src_width"]
+
+    readers = []
+    for s, sa in enumerate(seq_args):
+        if sa.get("synthetic", 0):
+            rng = np.random.default_rng(s)
+
+            def read_frame(rng=rng):
+                return (rng.integers(0, 256, (height, width)).astype(np.uint8),
+                        rng.integers(0, 256, (height // 2, width // 2)).astype(np.uint8),
+                        rng.integers(0, 256, (height // 2, width // 2)).astype(np.uint8))
+            readers.append(read_frame)
+        else:
+            start = (sa["frame_num_seq"] - frame_num) if sa.get("last_frames") else 0
+            readers.append(YUVReader(sa["vid_path"], width, height,
+                                     start_index=start).read_one_frame)
+
+    frame_types = [None] * frame_num
+    per_sq = [{q: {k: [0.0] * frame_num
+                   for k in ("psnrs", "rgb", "msssim", "bits", "bpp_mv")}
+               for q in q_list} for _ in range(n_seq)]
+    frame_pixel_num = height * width
+    pads = get_padding_size(height, width, p=PSIZE)
+    pl, pr, pt, pb = pads
+    me_stages = codec.model.num_me_stages
+    start_time = time.time()
+    for gop_idx in range(gop_num):
+        frames, frames_orig, mvs = [None] * gop_size, [None] * gop_size, [None] * gop_size
+        for i in range(gop_size):
+            ys, cbs, crs = zip(*(read() for read in readers))
+            y = torch.from_numpy(np.stack(ys).astype(np.float32)).to(dev)[:, None, None]
+            chroma = torch.from_numpy(np.stack([np.stack(cbs), np.stack(crs)], 1)
+                                      .astype(np.float32)).to(dev)[:, :, None]
+            frames_orig[i] = (y, chroma)   # (S, 1, 1, H, W), (S, 2, 1, h, w)
+            # each sequence repeated once a rate point
+            frames[i] = (F.pad(y, (pl, pr, pt, pb)).repeat_interleave(n_q, 0),
+                         F.pad(chroma, (pl // 2, pr // 2, pt // 2, pb // 2))
+                         .repeat_interleave(n_q, 0))
+
+        cur_stage, dpb = -1, None
+        for stage, fi, step, code_lt in sched:
+            if stage != cur_stage:
+                cur_stage, dpb = stage, empty_dpb()
+            frame_idx = gop_idx * gop_size + fi
+            result = codec.estimate_one_stage_multi(
+                frames[fi], frames[fi + step], code_lt, dpb, q_vec,
+                stage_idx=min(me_stages - 1, stage))
+            dpb = result["dpb"]
+            frames[fi] = (result["L_t"], result["L_tc"])
+            frames[fi + step] = (result["H_t"], result["H_tc"])
+            mvs[fi + step] = result["mv_hat"]
+            frame_types[frame_idx + step] = 1
+            for e in range(n):
+                st = per_sq[e // n_q][q_list[e % n_q]]
+                st["bits"][frame_idx + step] = (float(result["bit_H"][e])
+                                                + float(result["bit_ME"][e]))
+                st["bpp_mv"][frame_idx + step] = float(result["bit_ME"][e]) / frame_pixel_num
+                if code_lt:
+                    st["bits"][frame_idx] = float(result["bit_L"][e])
+            if code_lt:
+                frame_types[frame_idx] = 0
+
+        for stage, fi, step, _ in reversed(sched):
+            me_num = min(me_stages - 1, stage)
+            (l_y, l_c), (h_y, h_c) = frames[fi], frames[fi + step]
+            mv = mvs[fi + step]
+            ry, cy = codec.inverse_mctf_multi(l_y, h_y, mv, stage_idx=me_num)
+            rc, cc = codec.inverse_mctf_multi(l_c, h_c, mv, stage_idx=me_num,
+                                              downscale=True)
+            frames[fi], frames[fi + step] = (ry, rc), (cy, cc)
+
+        for i in range(gop_size):
+            frame_idx = gop_idx * gop_size + i
+            y_org, c_org = frames_orig[i]
+            do_ms = y_org.shape[3] > 160 and y_org.shape[4] > 160
+            for e in range(n):
+                st = per_sq[e // n_q][q_list[e % n_q]]
+                st["psnrs"][frame_idx], st["rgb"][frame_idx], st["msssim"][frame_idx] = \
+                    frame_metrics(frames[i][0][e], frames[i][1][e],
+                                  y_org[e // n_q], c_org[e // n_q], pads, do_ms)
+
+    test_time = time.time() - start_time
+    pad = frame_num - frame_num_eval
+    ft = frame_types[pad:] if pad > 0 else frame_types
+    logs = []
+    for s in range(n_seq):
+        logs.append({})
+        for q in q_list:
+            st = {k: v[pad:] for k, v in per_sq[s][q].items()}
+            logs[s][q] = generate_log_json(
+                frame_num_eval, ft, st["bits"], st["bpp_mv"], st["psnrs"],
+                st["rgb"], st["msssim"], frame_pixel_num, test_time / n)
+    return logs
+
+
 def q_indexes(args):
     if args.q_index >= 0:
         return [args.q_index]
@@ -363,6 +487,17 @@ def main(argv):
                     k, v = list(config[args.ds_name]["sequences"].items())[args.seq_num]
                     config[args.ds_name]["sequences"] = {k: v}
 
+        use_qbatch = not args.write_stream and (
+            (args.q_batch and len(q_list) > 1) or args.seq_batch > 0)
+        qbatch_cache = {}
+
+        def geom(seq):
+            return (seq["height"], seq["width"],
+                    args.force_intra_period if args.force_intra_period > 0
+                    else seq["gop"],
+                    args.force_frame_num if args.force_frame_num > 0
+                    else seq["frames"])
+
         res_summary = {"bpp": [], "psnr-rgb": [], "psnr-yuv": [], "quality": [],
                        "ms-ssim-rgb": [], "bpp_mv": []}
         for q_idx in q_list:
@@ -401,7 +536,27 @@ def main(argv):
                         create_folder(dec_folder, True)
                         cur["decoded_frame_folder"] = dec_folder
                     print(f"CODING {seq_name} q_index={q_idx}")
-                    res = run_test(codec, cur)
+                    if use_qbatch:
+                        key = (ds_name, seq_name)
+                        if key not in qbatch_cache:
+                            members = [(seq_name, seq)]
+                            for nm, sq in ds["sequences"].items():
+                                if (len(members) < args.seq_batch and nm != seq_name
+                                        and (ds_name, nm) not in qbatch_cache
+                                        and geom(sq) == geom(seq)):
+                                    members.append((nm, sq))
+                            if len(members) > 1:
+                                print(f"seq_batch: coding {len(members)} sequences "
+                                      f"together: {[m[0] for m in members]}")
+                            curs = [dict(cur, vid_path=os.path.join(
+                                root_path, ds["base_path"], nm + ".yuv"),
+                                frame_num_seq=sq["frames"]) for nm, sq in members]
+                            logs = run_test_qbatch(codec, curs, q_list)
+                            for (nm, _), lg in zip(members, logs):
+                                qbatch_cache[(ds_name, nm)] = lg
+                        res = qbatch_cache[key][q_idx]
+                    else:
+                        res = run_test(codec, cur)
                     res["ds_name"] = ds_name
                     res["video_path"] = seq_name
                     log_result[ds_name][seq_name] = res

@@ -28,7 +28,6 @@ import torch
 # options of the JAX trainer that the port does not have yet, and the
 # ROADMAP.md item that brings each
 NOT_YET = {
-    "lossless": "A.11 (opt-in variants: the lossless configuration)",
     "data_parallel": "A.14 (multi-device)",
 }
 
@@ -52,7 +51,8 @@ def parse_args(argv):
     p.add_argument("--exp_postfix", default="", type=str)
     p.add_argument("--num-workers", type=int, default=4)
     p.add_argument("--lossless", action="store_true",
-                   help="not ported yet (ROADMAP.md A.11)")
+                   help="the lossless pMCTF-L (rounded lifting and warps, no "
+                        "PostProcess) on YCoCg training frames")
     p.add_argument("--num_me_stages", default=2, type=int)
     p.add_argument("--ll_mode", default="fourstep", choices=("fourstep", "ar"))
     p.add_argument("--warp_mode", default="fast", choices=("exact", "fast"),
@@ -71,8 +71,6 @@ def parse_args(argv):
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.lossless:
-        p.error(f"--lossless is not ported yet: ROADMAP.md item {NOT_YET['lossless']}")
     if args.data_parallel > 1:
         p.error(f"--data_parallel is not ported yet: ROADMAP.md item "
                 f"{NOT_YET['data_parallel']}")
@@ -121,7 +119,8 @@ def main(argv):
     logger.info(get_env_info())
 
     # build_pmctf turns TF32 off: the trainer is f32, as the JAX one
-    model = build_pmctf(device, seed=args.seed, num_me_stages=args.num_me_stages,
+    model = build_pmctf(device, seed=args.seed, lossy=not args.lossless,
+                        num_me_stages=args.num_me_stages,
                         ll_mode=args.ll_mode, quant_stage=False,
                         warp_mode=args.warp_mode).train()
     n_params = sum(p.numel() for p in model.parameters())

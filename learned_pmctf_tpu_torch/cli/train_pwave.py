@@ -23,9 +23,6 @@ import time
 import numpy as np
 import torch
 
-LOSSLESS_ITEM = "A.11 (opt-in variants: the lossless configuration)"
-
-
 def parse_args(argv):
     p = argparse.ArgumentParser(description="pWave++ training (PyTorch)")
     p.add_argument("-d", "--dataset", type=str, required=True)
@@ -43,17 +40,15 @@ def parse_args(argv):
     p.add_argument("--exp_postfix", default="", type=str)
     p.add_argument("--weight_decay", type=float, default=0.05)
     p.add_argument("--lossless", action="store_true",
-                   help="not ported yet (ROADMAP.md A.11)")
+                   help="the lossless pWave (integer lifting, no PostProcess); "
+                        "the training batches are rounded")
     p.add_argument("--checkpoint", type=str, default=None)
     p.add_argument("--ll_mode", default="fourstep", choices=("fourstep", "ar"))
     p.add_argument("--features", type=int, default=112)
     p.add_argument("--steps_per_epoch", type=int, default=-1,
                    help="cap steps per epoch (smoke testing)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = p.parse_args(argv)
-    if args.lossless:
-        p.error(f"--lossless is not ported yet: ROADMAP.md item {LOSSLESS_ITEM}")
-    return args
+    return p.parse_args(argv)
 
 
 LAMBDA_LIST = [1, 35]
@@ -129,6 +124,8 @@ def main(argv):
             q_index = int(rng.integers(0, QP_NUM))
             lmbda = get_cur_lambda(LAMBDA_LIST, q_index, QP_NUM)
             x = torch.from_numpy(batch).to(device)
+            if args.lossless:
+                x = torch.round(x)
             metrics = step_fn(x, float(q_index), lmbda)
             if it % log_freq == 0:
                 logger.info(

@@ -55,8 +55,9 @@ STREAM_PART = 2
 class HostStats:
     """What the host does for a codec, summed over its threads: copies
     from the device (each one waits for the device's queue to drain),
-    seconds spent in rANS calls, and the AR LL decoder's fronts and
-    seconds (threads overlap, so the sums may exceed the wall time)."""
+    seconds spent in rANS calls, the AR LL decoder's fronts and seconds
+    (threads overlap, so the sums may exceed the wall time), and the
+    largest |symbol| of the band streams written."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -69,6 +70,14 @@ class HostStats:
             self.rans_decode_s = 0.0
             self.ar_fronts = 0
             self.ar_decode_s = 0.0
+            self.symbol_peak = 0
+
+    def add_symbols(self, symbols: np.ndarray):
+        """Track the largest |symbol| the encoder writes (the coder clips
+        at entropy.coder.SYMBOL_CLIP)."""
+        peak = int(np.abs(symbols).max()) if symbols.size else 0
+        with self._lock:
+            self.symbol_peak = max(self.symbol_peak, peak)
 
     def to_host(self, t: torch.Tensor) -> np.ndarray:
         with self._lock:
@@ -185,6 +194,11 @@ class PWaveCodec:
         for step, (my, mx) in enumerate(PHASES):
             idx = build_indexes_from_scales(scales[:, :, my::2, mx::2])
             m = means[:, :, my::2, mx::2]
+            if not module.lossy:
+                # the estimate path codes around the rounded means in
+                # lossless mode (models/context.py:process_with_mask), so
+                # that integer subbands come back exactly
+                m = torch.round(m)
             if teacher is None:
                 idx_host = self.stats.to_host(idx)
                 t0 = time.perf_counter()
@@ -244,6 +258,7 @@ class PWaveCodec:
         symbols across its substreams, so the two sides must chunk the
         sequence alike."""
         syms = ll_int - both[1]
+        self.stats.add_symbols(syms)
         for rows, cols in ar_wavefronts(*syms.shape[2:]):
             coder.encode_with_indexes(syms[:, :, rows, cols].transpose(2, 0, 1),
                                       both[0][:, :, rows, cols].transpose(2, 0, 1),
@@ -320,6 +335,7 @@ class PWaveCodec:
                 self._encode_ar(coder, *got)
                 continue
             for vals, idx in zip(got[::2], got[1::2]):
+                self.stats.add_symbols(vals)
                 coder.encode_with_indexes(vals, idx, *self.em.tables())
         coder.flush()
         bit_stream = coder.get_encoded_stream()

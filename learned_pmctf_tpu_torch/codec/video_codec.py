@@ -197,7 +197,10 @@ class PMCTFCodec:
         stage = self.model.me_index(stage_idx)
         coder = coder or self.coder
         coder.set_stream(stream)
-        zh, zw = get_downsampled_shape(int(height), int(width), 64)
+        # the hyper-latent of the plane motion was estimated on: with
+        # me_downsample, the downsampled one
+        zh, zw = get_downsampled_shape(int(height) // me_downsample,
+                                       int(width) // me_downsample, 64)
         t0 = time.perf_counter()
         z = self._mv_coders[stage].decode_stream(coder, (zh, zw))
         self.stats.add_rans("decode", time.perf_counter() - t0)
@@ -459,3 +462,84 @@ class PMCTFCodec:
     def inverse_mctf(self, l_t, h_t, mv_hat, stage_idx: int = 0,
                      downscale: bool = False):
         return self.model.inverse_mctf(l_t, h_t, mv_hat, stage_idx, downscale)
+
+    # ---- the q-batched estimate path -----------------------------------------
+    #
+    # Q rate points (or sequences x rate points) in one batch: a leading
+    # element axis E on every plane, flattened into the model's batch, so
+    # that each layer runs once for all of them. An element's luma planes
+    # are (B, 1, H, W) and its chroma planes (P, 1, h, w), P = reps * B;
+    # the model tiles the luma MVs over the chroma batch copy by copy, so
+    # chroma is flattened copy-major: (reps, E, B).
+
+    @staticmethod
+    def _to_batch(t, reps: int = 1):
+        e, p = t.shape[:2]
+        b = p // reps
+        return (t.reshape(e, reps, b, *t.shape[2:]).transpose(0, 1)
+                .reshape(e * p, *t.shape[2:]))
+
+    @staticmethod
+    def _from_batch(t, e: int, reps: int = 1):
+        b = t.shape[0] // (e * reps)
+        return (t.reshape(reps, e, b, *t.shape[1:]).transpose(0, 1)
+                .reshape(e, reps * b, *t.shape[1:]))
+
+    @staticmethod
+    def _per_element(bits, e: int, reps: int = 1):
+        """Per-sample rates (reps * E * B,) summed per element: (E,)."""
+        return bits.reshape(reps, e, -1).sum(dim=(0, 2))
+
+    @torch.no_grad()
+    def estimate_one_stage_multi(self, ref_frame, cur_frame, code_lt: bool,
+                                 dpb, q_indices, stage_idx: int = 0):
+        """estimate_one_stage over a batch of rate points.
+
+        ref_frame/cur_frame: (y, chroma) with a leading element axis E,
+        ((E, B, 1, H, W), (E, P, 1, h, w)); dpb leaves (E, ...) or None;
+        q_indices: E q indexes. Returns estimate_one_stage's planes with
+        the leading axis, and (E,) numpy arrays of bits."""
+        ref_y, ref_c = ref_frame
+        cur_y, cur_c = cur_frame
+        e, b = ref_y.shape[:2]
+        reps = ref_c.shape[1] // b
+        q = torch.as_tensor(q_indices, dtype=torch.float32,
+                            device=ref_y.device).repeat_interleave(b)
+        flat = {k: None if v is None else self._to_batch(v) for k, v in dpb.items()}
+        res = self.model.forward_one_stage(
+            self._to_batch(ref_y), self._to_batch(cur_y), q, code_lt, flat,
+            stage_idx=stage_idx, per_sample=True)
+        res_c = self.model.forward_one_stage(
+            self._to_batch(ref_c, reps), self._to_batch(cur_c, reps),
+            q.repeat(reps), code_lt, empty_dpb(), mv_hat=res["mv_hat"],
+            stage_idx=stage_idx, per_sample=True)
+
+        def bits(key):
+            total = (self._per_element(res[key], e)
+                     + self._per_element(res_c[key], e, reps))
+            return total.cpu().numpy()
+
+        return {
+            "L_t": self._from_batch(res["L_t"], e),
+            "H_t": self._from_batch(res["H_t"], e),
+            "L_tc": self._from_batch(res_c["L_t"], e, reps),
+            "H_tc": self._from_batch(res_c["H_t"], e, reps),
+            "bit_L": bits("bit_L") if code_lt else None,
+            "bit_H": bits("bit_H"),
+            "bit_ME": self._per_element(res["bit_ME"], e).cpu().numpy(),
+            "mv_hat": self._from_batch(res["mv_hat"], e),
+            "dpb": {k: None if v is None else self._from_batch(v, e)
+                    for k, v in res["dpb"].items()},
+        }
+
+    @torch.no_grad()
+    @f32_streams
+    def inverse_mctf_multi(self, l_t, h_t, mv_hat, stage_idx: int = 0,
+                           downscale: bool = False):
+        """inverse_mctf with a leading element axis on every input: l_t,
+        h_t (E, P, 1, h, w), mv_hat (E, B, 2, H, W)."""
+        e, reps = l_t.shape[0], l_t.shape[1] // mv_hat.shape[1]
+        ref, cur = self.model.inverse_mctf(
+            self._to_batch(l_t, reps), self._to_batch(h_t, reps),
+            self._to_batch(mv_hat), stage_idx, downscale)
+        return self._from_batch(ref, e, reps), self._from_batch(cur, e, reps)

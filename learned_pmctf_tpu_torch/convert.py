@@ -232,42 +232,100 @@ class _Bridge:
             self.leaf(f"{tj}/scale_u", f"{tt}.scale_u")
 
 
-def _bridged(tree: Mapping, pwave: bool) -> _Bridge:
+    # ---- the modules nothing builds (models/layers_extra.py,
+    # PostProcessCtx): their port names are the flax names
+
+    def dense(self, j, t):
+        """flax Dense (kernel (in, out)) -> nn.Linear (weight (out, in))."""
+        self.leaf(f"{j}/kernel", f"{t}.weight")
+        self.out[f"{t}.weight"] = self.out[f"{t}.weight"].T.contiguous()
+        self.leaf(f"{j}/bias", f"{t}.bias")
+
+    def postprocess_ctx(self, j, t, module):
+        self.conv(f"{j}/conv1", f"{t}.conv1")
+        for i in range(len(module.resBlocks)):
+            self.resblock(f"{j}/res{i}", f"{t}.resBlocks.{i}")
+        self.conv(f"{j}/conv2", f"{t}.conv2")
+        self.conv(f"{j}/conv3", f"{t}.conv3")
+
+    def dynamic_dw(self, j, t, module):
+        self.conv(f"{j}/reduce", f"{t}.reduce")
+        self.leaf(f"{j}/norm/scale", f"{t}.norm.scale")
+        self.leaf(f"{j}/norm/bias", f"{t}.norm.bias")
+        self.conv(f"{j}/expand", f"{t}.expand")
+        self.leaf(f"{j}/bias", f"{t}.bias")
+
+    def conditional_conv(self, j, t, module):
+        self.dense(f"{j}/fc_scaling", f"{t}.fc_scaling")
+        self.dense(f"{j}/fc_bias", f"{t}.fc_bias")
+        if module.mask_type:
+            self.masked_conv(f"{j}/conv", f"{t}.conv", module.mask_type)
+        else:
+            self.conv(f"{j}/conv", f"{t}.conv")
+
+    def conv3d(self, j, t, module):
+        self.conv(j, t)
+        if module.mask is not None:
+            self.out[f"{t}.mask"] = module.mask.detach().cpu().clone()
+
+
+def _bridged(tree: Mapping, kind: str = "pmctf", module=None) -> _Bridge:
+    """Map a flax tree of `kind`: "pmctf", "pwave", or (with the port
+    `module` to fill) one of the modules nothing builds."""
     if "params" in tree and len(tree) == 1:
         tree = tree["params"]
-    # a PWave tree goes through the PMCTF coders' map under one prefix
-    flat = _flatten({"pwave": tree} if pwave else tree)
+    # a sub-module's tree goes through its map under one prefix
+    flat = _flatten(tree if kind == "pmctf" else {"m": tree})
     bridge = _Bridge(flat)
-    if pwave:
-        bridge.pwave("pwave", "pwave")
-    else:
+    if kind == "pmctf":
         bridge.pmctf()
+    elif kind == "pwave":
+        bridge.pwave("m", "m")
+    else:
+        getattr(bridge, kind)("m", "m", module)
     unused = sorted(set(flat) - bridge.used)
     if unused:
         raise ValueError(f"{len(unused)} JAX leaves have no home in the port: "
                          f"{unused[:10]}")
-    if pwave:
-        bridge.out = {k[len("pwave."):]: v for k, v in bridge.out.items()}
-        bridge.source = {k[len("pwave."):]: v[len("pwave/"):]
+    if kind != "pmctf":
+        bridge.out = {k[len("m."):]: v for k, v in bridge.out.items()}
+        bridge.source = {k[len("m."):]: v[len("m/"):]
                          for k, v in bridge.source.items()}
     return bridge
 
 
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """JAX PMCTF params (nested dict of arrays) -> port PMCTF state dict."""
-    return _bridged(tree, pwave=False).out
+    return _bridged(tree).out
 
 
 def pwave_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """JAX PWave params -> port PWave state dict."""
-    return _bridged(tree, pwave=True).out
+    return _bridged(tree, "pwave").out
+
+
+# port module class -> its map
+_MODULE_KINDS = {"PostProcessCtx": "postprocess_ctx",
+                 "DynamicDWConv": "dynamic_dw",
+                 "MaskedDynamicDWConv": "dynamic_dw",
+                 "ConditionalConv": "conditional_conv",
+                 "Conv3d": "conv3d"}
+
+
+def module_params_from_jax(module, tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX params of PostProcessCtx, DynamicDWConv, MaskedDynamicDWConv,
+    ConditionalConv or Conv3d -> the state dict of the port's `module`
+    of the same class (its mask buffers made by the port). The port's
+    CompressionModel has no parameters."""
+    kind = _MODULE_KINDS[type(module).__name__]
+    return _bridged(tree, kind, module).out
 
 
 def jax_paths(tree: Mapping, pwave: bool = False) -> Dict[str, str]:
     """Port state-dict key -> the '/'-joined JAX path it is read from (a
     per-ME-stage scale of the port reads one row of its JAX leaf). The
     buffers the port makes itself (AR masks) have none."""
-    return _bridged(tree, pwave).source
+    return _bridged(tree, "pwave" if pwave else "pmctf").source
 
 
 # Parameters of the port that the reference model does not save: the

@@ -18,16 +18,27 @@ import numpy as np
 import torch
 
 from .. import native
-from .distributions import laplace_cdf
+from .distributions import gaussian_cdf, laplace_cdf
 
 PRECISION = 16
 SCALE_LEVELS = 256
 SCALE_MIN, SCALE_MAX = 0.01, 64.0  # the Laplace scale table's range
+GAUSSIAN_SCALE_MIN = 0.11  # the Gaussian table's lower end (same top)
 SYMBOL_CLIP = 30000  # symbols leave for rANS as int16, clipped to this
 
 
-def build_indexes_from_scales(scales: torch.Tensor) -> torch.Tensor:
-    """Map scale planes to Laplace CDF-table indices, on the tensor's device.
+def _scale_bounds(distribution: str):
+    if distribution == "laplace":
+        return SCALE_MIN, SCALE_MAX
+    if distribution == "gaussian":
+        return GAUSSIAN_SCALE_MIN, SCALE_MAX
+    raise ValueError(f"unknown distribution {distribution!r}")
+
+
+def build_indexes_from_scales(scales: torch.Tensor,
+                              distribution: str = "laplace") -> torch.Tensor:
+    """Map scale planes to CDF-table indices (of the Laplace table unless
+    `distribution` says "gaussian"), on the tensor's device.
 
     Truncates like the reference's ``.int()`` (the values are >= 0 after
     the clip, so truncation is floor). ``log`` is the device's: CUDA's may
@@ -36,8 +47,9 @@ def build_indexes_from_scales(scales: torch.Tensor) -> torch.Tensor:
     of the same kind, never across (nor do streams of the JAX package
     decode here).
     """
-    log_min = math.log(SCALE_MIN)
-    step = (math.log(SCALE_MAX) - log_min) / (SCALE_LEVELS - 1)
+    smin, smax = _scale_bounds(distribution)
+    log_min = math.log(smin)
+    step = (math.log(smax) - log_min) / (SCALE_LEVELS - 1)
     idx = (torch.log(torch.clamp_min(scales, 1e-5)) - log_min) / step
     return torch.clamp(idx, 0, SCALE_LEVELS - 1).to(torch.int32)
 
@@ -93,15 +105,23 @@ def _laplace_cdf_f32(x, scales) -> np.ndarray:
     return laplace_cdf(x, scales).numpy()
 
 
+def _gaussian_cdf_f32(x, scales) -> np.ndarray:
+    """The Gaussian CDF in f32 on the CPU (torch's ``erf``)."""
+    x = torch.as_tensor(np.asarray(x, np.float32))
+    scales = torch.as_tensor(np.asarray(scales, np.float32))
+    return gaussian_cdf(x, scales).numpy()
+
+
 class GaussianEncoder:
-    """Scale-indexed Laplace coder over a 256-entry log scale table.
+    """Scale-indexed coder over a 256-entry log scale table: the Laplace
+    table the codecs use, or with distribution="gaussian" the Gaussian
+    one (CompressionModel's option)."""
 
-    (The JAX package's class of the same name also offers a Gaussian
-    table; the codecs use the Laplace one only, so only it is ported.)"""
-
-    def __init__(self):
+    def __init__(self, distribution: str = "laplace"):
+        smin, smax = _scale_bounds(distribution)
+        self.distribution = distribution
         self.scale_table = np.exp(
-            np.linspace(math.log(SCALE_MIN), math.log(SCALE_MAX), SCALE_LEVELS))
+            np.linspace(math.log(smin), math.log(smax), SCALE_LEVELS))
         self._cdf = None
         self._cdf_length = None
         self._offset = None
@@ -112,7 +132,9 @@ class GaussianEncoder:
         scales = self.scale_table
         # smallest i in [2, 50] with cdf(i) > 0.9999, else 50
         probe = np.arange(2, 51, dtype=np.float64)
-        cdf_at_i = _laplace_cdf_f32(probe[None, :], scales[:, None])
+        cdf_fn = (_laplace_cdf_f32 if self.distribution == "laplace"
+                  else _gaussian_cdf_f32)
+        cdf_at_i = cdf_fn(probe[None, :], scales[:, None])
         hit = cdf_at_i > 0.9999
         pmf_center = np.where(hit.any(axis=1), probe[hit.argmax(axis=1)], 50.0)
         pmf_center = pmf_center.astype(np.int32)
@@ -120,8 +142,8 @@ class GaussianEncoder:
         pmf_length = 2 * pmf_center + 1
         max_length = int(pmf_length.max())
         samples = np.arange(max_length, dtype=np.float64)[None, :] - pmf_center[:, None]
-        upper = _laplace_cdf_f32(samples + 0.5, scales[:, None])
-        lower = _laplace_cdf_f32(samples - 0.5, scales[:, None])
+        upper = cdf_fn(samples + 0.5, scales[:, None])
+        lower = cdf_fn(samples - 0.5, scales[:, None])
         pmf = (upper - lower).astype(np.float32)
         tail_mass = (2.0 * lower[:, :1]).astype(np.float32).reshape(-1)
 

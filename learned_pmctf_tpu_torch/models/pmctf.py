@@ -109,6 +109,10 @@ class PMCTF(nn.Module):
 
     # ---- helpers ---------------------------------------------------------
 
+    @staticmethod
+    def get_qp_num() -> int:
+        return PWave.get_qp_num()
+
     def me_index(self, stage_idx: int) -> int:
         return min(self.num_me_stages - 1, stage_idx)
 
@@ -141,14 +145,16 @@ class PMCTF(nn.Module):
     @policy_scope
     def compute_and_code_motion(self, ref_frame, cur_frame, q_index, dpb,
                                 stage_idx: int = 0, me_downsample: int = 1,
-                                training: bool = False, noise=None):
+                                training: bool = False, noise=None,
+                                per_sample: bool = False):
         """Estimate, encode and decode motion.
 
-        Estimate path: hard rounding, the bits of the batch summed. With
-        ``training``: straight-through rounding and the batch's mean of
-        each sample's bits per pixel; ``noise`` = (n_y, n_z), uniform
-        noise shaped as ``mv_noise_shapes`` gives, which then replaces
-        the rounding in the two rate terms (no gradient flows into it)."""
+        Estimate path: hard rounding, the bits of the batch summed (with
+        ``per_sample``, each sample's, shape (B,)). With ``training``:
+        straight-through rounding and the batch's mean of each sample's
+        bits per pixel; ``noise`` = (n_y, n_z), uniform noise shaped as
+        ``mv_noise_shapes`` gives, which then replaces the rounding in the
+        two rate terms (no gradient flows into it)."""
         me_num = self.me_index(stage_idx)
         mv_y, mv_z = self._mv_latents(ref_frame, cur_frame, dpb, me_num,
                                       q_index, me_downsample)
@@ -172,7 +178,7 @@ class PMCTF(nn.Module):
         bpp_mv_z = bits_mv_z.sum(dim=(1, 2, 3)) / pixel_num
         if training:
             bpp_mv_y, bpp_mv_z = bpp_mv_y.mean(), bpp_mv_z.mean()
-        else:
+        elif not per_sample:
             bpp_mv_y, bpp_mv_z = bpp_mv_y.sum(), bpp_mv_z.sum()
         ref_mv = {"mv_feature": mv_feature, "mv_y_hat": mv_y_hat}
         return mv_hat, ref_mv, bpp_mv_y, bpp_mv_z
@@ -301,13 +307,17 @@ class PMCTF(nn.Module):
     def forward_one_stage(self, ref_frame, cur_frame, q_index, code_lt: bool,
                           dpb, mv_hat=None, stage_idx: int = 0,
                           me_downsample: int = 1, training: bool = False,
-                          noise=None):
+                          noise=None, per_sample: bool = False):
         """Code one temporal decomposition pair: the estimate path, or
         with ``training`` (and optionally the MV rate terms' ``noise``,
         see compute_and_code_motion) one pair of the training step.
 
         With `mv_hat` (the luma MVs) this is the chroma pass: the MVs are
-        halved and no motion is coded."""
+        halved and no motion is coded. With ``per_sample`` (the q-batched
+        estimate path) `q_index` may be a (B,) tensor, one q a sample, and
+        every rate comes back per sample, shape (B,)."""
+        if torch.is_tensor(q_index) and q_index.dim() == 1:
+            q_index = q_index.view(-1, 1, 1, 1)  # broadcasts over (B, C, H, W)
         if mv_hat is not None:
             bpp_mv_y = bpp_mv_z = None
             ref_mv = {"mv_feature": None, "mv_y_hat": None}
@@ -315,7 +325,7 @@ class PMCTF(nn.Module):
         else:
             mv_hat, ref_mv, bpp_mv_y, bpp_mv_z = self.compute_and_code_motion(
                 ref_frame, cur_frame, q_index, dpb, stage_idx, me_downsample,
-                training, noise)
+                training, noise, per_sample)
 
         l_t, h_t, pred, inv_pred = self.forward_mctf(
             ref_frame, cur_frame, mv_hat, stage_idx)
@@ -324,15 +334,16 @@ class PMCTF(nn.Module):
                               training=training)
         has_mv_bits = bpp_mv_y is not None
         pixels = ref_frame.shape[2] * ref_frame.shape[3]
+        bit_h = res_h["bits"] if per_sample else res_h["bits_total"]
+        bpp_h = bit_h / pixels if per_sample else res_h["bpp_total"]
         ret = {
             "bpp_mv_y": bpp_mv_y,
             "bpp_mv_z": bpp_mv_z,
             "bpp_me": bpp_mv_y + bpp_mv_z if has_mv_bits else None,
             "me_mse": torch.mean((pred - cur_frame) ** 2),
-            "bpp": (res_h["bpp_total"] + bpp_mv_y + bpp_mv_z if has_mv_bits
-                    else res_h["bpp_total"]),
-            "bpp_H": res_h["bpp_total"],
-            "bit_H": res_h["bits_total"],
+            "bpp": bpp_h + bpp_mv_y + bpp_mv_z if has_mv_bits else bpp_h,
+            "bpp_H": bpp_h,
+            "bit_H": bit_h,
             "bit_ME": (bpp_mv_y + bpp_mv_z) * pixels if has_mv_bits else None,
             "mse_H": res_h["mse"],
             "mv_hat": mv_hat,
@@ -342,8 +353,9 @@ class PMCTF(nn.Module):
         }
         if code_lt:
             res_l = self.lp_coder(l_t, q_index, training=training)
-            ret["bpp_L"] = res_l["bpp_total"]
-            ret["bit_L"] = res_l["bits_total"]
+            ret["bit_L"] = res_l["bits"] if per_sample else res_l["bits_total"]
+            ret["bpp_L"] = (ret["bit_L"] / pixels if per_sample
+                            else res_l["bpp_total"])
             ret["mse_L"] = res_l["mse"]
             ret["me_mse_inv"] = torch.mean((inv_pred - ref_frame) ** 2)
             ret["L_t"] = res_l["x_hat"]

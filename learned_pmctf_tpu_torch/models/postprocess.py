@@ -8,8 +8,10 @@ weights and so the activations between convs are bf16, as that route
 casts them, and the kernel's bf16 instance runs every conv; the output
 goes back to f32 at the net's boundary. Unlike the Pallas route, the
 kernel also takes widths that are no multiple of 128 (chroma's 960).
+PostProcessCtx, the contextual variant, runs on stock PyTorch.
 """
 
+import torch
 import torch.nn as nn
 
 from ..ops.conv3x3 import conv3x3, conv3x3_plain
@@ -48,3 +50,26 @@ class PostProcess(nn.Module):
         t = conv(t, self.conv2, residual=conv1)
         t = conv(t, self.conv3)
         return x + net_boundary(t)
+
+
+class PostProcessCtx(nn.Module):
+    """The contextual variant of PostProcess, conditioned on a feature map
+    (counterpart of the JAX package's PostProcessCtx, which no model of
+    either package builds). Returns (feature, x + enhancement). It has no
+    kernel route in the JAX package, so none here: its convs, the
+    (ctx_ch + in_ch) -> channels conv1 among them, run on stock PyTorch."""
+
+    def __init__(self, in_ch: int = 1, out_ch: int = 1, channels: int = 64,
+                 ctx_ch: int = 64):
+        super().__init__()
+        self.conv1 = Conv2d(in_ch + ctx_ch, channels, 3)
+        self.resBlocks = nn.ModuleList(ResBlock(channels) for _ in range(6))
+        self.conv2 = Conv2d(channels, channels, 3)
+        self.conv3 = Conv2d(channels, out_ch, 3)
+
+    def forward(self, x, ctx):
+        t = conv1 = self.conv1(torch.cat([ctx, x], dim=1))
+        for blk in self.resBlocks:
+            t = blk(t)
+        feature = self.conv2(t) + conv1
+        return feature, x + self.conv3(feature)

@@ -81,6 +81,10 @@ class PWave(nn.Module):
             self.QP.fill_(1.0 / 16.0)
             self.QP_ll.fill_(1.0 / 16.0)
 
+    @staticmethod
+    def get_qp_num() -> int:
+        return QP_NUM
+
     def current_q(self, q_index, qp_scale=None):
         if q_index is None:
             qp, qp_ll = self.QP[-1], self.QP_ll[-1]

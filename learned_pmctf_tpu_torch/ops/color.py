@@ -2,7 +2,9 @@
 
 Counterpart of learned_pmctf_tpu/ops/color.py: the JPEG-flavour
 full-range YCbCr pair and the 4:2:0 <-> 4:4:4 chroma conversions the eval
-metrics use.
+metrics use; the integer studio-range YCbCr pair (BT.601 and BT.709) and
+the lossless YCoCg pair of the lossless configuration (int32 arithmetic
+with arithmetic right shifts, the JAX package's numbers exactly).
 """
 
 import torch
@@ -57,3 +59,63 @@ def yuv444_to_420(ycbcr):
          + c[..., 0::2, 1::2] + c[..., 1::2, 1::2]) / 4.0
     c = torch.round(c)
     return y, c[..., 0:1, :, :], c[..., 1:2, :, :]
+
+
+# studio-range fixed-point matrices, 8 fractional bits: rows Y, Cb, Cr
+_STUDIO_FWD = {601: ((66, 129, 25), (-38, -74, 112), (112, -94, -18)),
+               709: ((47, 157, 16), (-26, -87, 112), (112, -102, -10))}
+# rows R, G, B on (Y - 16, Cb - 128, Cr - 128)
+_STUDIO_INV = {601: ((298, 0, 409), (298, -100, -208), (298, 516, 0)),
+               709: ((298, 0, 459), (298, -55, -136), (298, 541, 0))}
+
+
+def _studio(table, flavor: int):
+    if flavor not in table:
+        raise ValueError(f"unknown conversion flavor {flavor}")
+    return table[flavor]
+
+
+def rgb_to_ycbcr_studio(rgb, flavor: int = 709):
+    """Integer studio-range RGB->YCbCr: an 8-bit fixed-point matrix,
+    arithmetic >> 8, headroom clamps (Y <= 235, Cb/Cr <= 240, all >= 16).
+    Input (..., 3, H, W) in [0, 255]; returns int32."""
+    x = rgb.to(torch.int32)
+    rgb3 = (x[..., 0, :, :], x[..., 1, :, :], x[..., 2, :, :])
+    out = []
+    for (a, b, c), offset, top in zip(_studio(_STUDIO_FWD, flavor),
+                                      (16, 128, 128), (235, 240, 240)):
+        v = ((a * rgb3[0] + b * rgb3[1] + c * rgb3[2] + 128) >> 8) + offset
+        out.append(torch.clamp(v, 16, top))
+    return torch.stack(out, dim=-3)
+
+
+def ycbcr_to_rgb_studio(ycbcr, flavor: int = 709):
+    """Integer studio-range YCbCr->RGB (the inverse matrix, arithmetic
+    >> 8, clamped to [0, 255]). Input (..., 3, H, W); returns int32."""
+    x = ycbcr.to(torch.int32)
+    cde = (x[..., 0, :, :] - 16, x[..., 1, :, :] - 128, x[..., 2, :, :] - 128)
+    out = [(a * cde[0] + b * cde[1] + c * cde[2] + 128) >> 8
+           for a, b, c in _studio(_STUDIO_INV, flavor)]
+    return torch.clamp(torch.stack(out, dim=-3), 0, 255)
+
+
+def rgb_to_ycocg_lossless(x):
+    """Lossless RGB->YCoCg (integer lifting); float32 out."""
+    x = x.to(torch.int32)
+    r, g, b = x[..., 0, :, :], x[..., 1, :, :], x[..., 2, :, :]
+    co = r - b
+    tmp = b + (co >> 1)
+    cg = g - tmp
+    y = tmp + (cg >> 1)
+    return torch.stack([y, co, cg], dim=-3).to(torch.float32)
+
+
+def ycocg_to_rgb_lossless(x):
+    """Lossless YCoCg->RGB, the exact inverse; float32 out."""
+    x = x.to(torch.int32)
+    y, co, cg = x[..., 0, :, :], x[..., 1, :, :], x[..., 2, :, :]
+    tmp = y - (cg >> 1)
+    g = cg + tmp
+    b = tmp - (co >> 1)
+    r = b + co
+    return torch.stack([r, g, b], dim=-3).to(torch.float32)

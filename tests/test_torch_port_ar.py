@@ -2,7 +2,10 @@
 the causal masks, MaskedConv2d and ContextFusionSubband, PWave's AR
 estimate forward, one AR forward_one_stage pair, the wavefront schedule,
 the partial-plane invariant the wavefront decoder rests on, the AR
-encoder's symbols and indexes, and the AR codecs' round trips.
+encoder's symbols and indexes, and the AR codecs' round trips. (The
+masks, MaskedConv2d, the wavefronts and the PWaveCodec round trip are in
+test_torch_port_ar_2.py to _4.py, which import this file's helpers:
+at most eight tests a file.)
 
 Small config (decomp_levels=2, features=16, ar_features=16, channel_mv=8,
 64x64 luma planes, LL planes of 16x16); the flax side runs eagerly on the
@@ -23,24 +26,19 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from learned_pmctf_tpu.codec.image_codec import ar_wavefronts as jax_wavefronts
 from learned_pmctf_tpu.entropy import coder as jcoder
 from learned_pmctf_tpu.models import PMCTF as JaxPMCTF
 from learned_pmctf_tpu.models.context import ContextFusionSubband as JaxSubband
-from learned_pmctf_tpu.models.layers import MaskedConv2d as JaxMaskedConv2d
 from learned_pmctf_tpu.models.pwave import PWave as JaxPWave
-from learned_pmctf_tpu.ops.masks import causal_conv_mask as jax_mask
 
 from learned_pmctf_tpu_torch.codec.image_codec import PWaveCodec, ar_wavefronts
 from learned_pmctf_tpu_torch.codec.video_codec import PMCTFCodec
 from learned_pmctf_tpu_torch.convert import params_from_jax
 from learned_pmctf_tpu_torch.gop import stream_gop
 from learned_pmctf_tpu_torch.models.context import ContextFusionSubband
-from learned_pmctf_tpu_torch.models.layers import MaskedConv2d
 from learned_pmctf_tpu_torch.models.pmctf import build_pmctf, empty_dpb
-from learned_pmctf_tpu_torch.ops.masks import causal_conv_mask
 from test_torch_port_gop import synthetic_frames
-from test_torch_port_models import SMALL, _draw, assert_close, assert_rel, frames
+from torch_port_helpers import SMALL, _draw, assert_close, assert_rel, frames
 
 AR = dict(SMALL, ll_mode="ar")
 Q = 10.0
@@ -118,31 +116,6 @@ def rounded_plane(seed, shape=(2, 1, 16, 16), scale=60.0):
 
 # ---- masks and modules --------------------------------------------------------
 
-@pytest.mark.parametrize("kind", ["A", "B", "C"])
-@pytest.mark.parametrize("shape", [(3, 3, 4, 1), (5, 5, 2, 3), (3, 5, 1, 1)])
-def test_causal_conv_mask_matches_jax(kind, shape):
-    got = causal_conv_mask(*shape[:2], kind, *shape[2:])
-    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_mask(*shape[:2], kind, *shape[2:])))
-    with pytest.raises(ValueError):
-        causal_conv_mask(3, 3, "D", 1, 1)
-
-
-@pytest.mark.parametrize("kind", ["A", "B"])
-def test_masked_conv2d_matches_jax(kind):
-    g = np.random.default_rng(1)
-    w = g.normal(0, 0.1, (8, 3, 3, 3)).astype(np.float32)
-    b = g.normal(0, 0.1, (8,)).astype(np.float32)
-    x = g.normal(0, 30, (2, 3, 12, 20)).astype(np.float32)
-    ref = JaxMaskedConv2d(3, 8, 3, kind).apply(
-        {"params": {"kernel": jnp.asarray(w), "bias": jnp.asarray(b)}}, jnp.asarray(x))
-    conv = MaskedConv2d(3, 8, 3, kind)
-    conv.load_state_dict({"weight": torch.tensor(w), "bias": torch.tensor(b),
-                          "mask": causal_conv_mask(3, 3, kind, 8, 3)}, strict=True)
-    with torch.no_grad():
-        got = conv(torch.tensor(x))
-    assert_close(got, ref, 1e-5, f"MaskedConv2d {kind}")
-    assert set(conv.state_dict()) == {"weight", "bias", "mask"}
-
 
 @pytest.mark.parametrize("gain", ["init", "unit"])
 def test_context_fusion_subband_matches_jax(models, unit_models, gain):
@@ -210,18 +183,6 @@ def test_pwave_ar_forward_matches_jax(models):
 
 # ---- the wavefront codec ------------------------------------------------------------
 
-@pytest.mark.parametrize("hw", [(1, 1), (4, 4), (9, 15), (5, 3)])
-def test_ar_wavefronts_match_jax(hw):
-    got, ref = ar_wavefronts(*hw), jax_wavefronts(*hw)
-    assert len(got) == len(ref) == 2 * (hw[0] - 1) + hw[1]
-    for (r, c), (jr, jc) in zip(got, ref):
-        np.testing.assert_array_equal(r, jr)
-        np.testing.assert_array_equal(c, jc)
-    cover = np.zeros(hw, int)
-    for r, c in got:
-        cover[r, c] += 1
-    assert np.all(cover == 1)
-
 
 def test_partial_plane_equals_full_plane_on_every_front(unit_models):
     """What the decoder computes at front t from the partial plane (the
@@ -273,31 +234,6 @@ def test_ar_encoder_symbols_and_indexes_match_jax(unit_models):
     # the symbols the encoder writes: the rounded plane minus rounded means
     sym, ref_sym = ll.ravel() - got_means, ll.ravel() - np.round(ref_means)
     assert np.count_nonzero(sym != ref_sym) == len(d)
-
-
-@pytest.mark.parametrize("batch", [1, 2])
-def test_pwave_codec_ar_round_trip(unit_models, tmp_path, batch):
-    _, port = unit_models
-    torch.backends.cudnn.deterministic = False
-    codec = PWaveCodec(port.hp_coder, device="cpu")
-    # the codec's convs must not depend on a timing-based algorithm pick
-    assert torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark
-    assert not torch.backends.cudnn.allow_tf32
-    x = torch.tensor(np.random.default_rng(12).normal(0, 25, (batch, 1, 64, 64)),
-                     dtype=torch.float32)
-    path = str(tmp_path / "x.bin")
-    recon, stream = codec.compress(x, Q, file_name=path, sideinfo=(1, batch, 64, 64))
-    recon2, stream2 = codec.compress(x, Q, coder=codec.make_coder())
-    assert stream == stream2 and torch.equal(recon, recon2)
-    codec.stats.reset()
-    decoded = codec.decompress(path, padding=64, q_index=Q)["x_hat"]
-    assert torch.equal(decoded, recon)
-    fronts = 2 * (16 - 1) + 16
-    assert codec.stats.ar_fronts == fronts
-    assert codec.stats.syncs == fronts + 4 * 3 * AR["decomp_levels"]
-    with torch.no_grad():
-        est = port.hp_coder(x, Q)["x_hat"]
-    assert float((est - recon).abs().max()) < 1e-3
 
 
 def test_stream_gop4_ar_round_trip(unit_models, tmp_path):

@@ -34,7 +34,7 @@ from learned_pmctf_tpu_torch.gop import code_gop, stream_gop
 from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
 from test_torch_port_gop import (Q, _check_gop, _check_stream_gop,
                                  jax_gop, synthetic_frames)
-from test_torch_port_models import SMALL, assert_close, jax_small_params
+from torch_port_helpers import SMALL, assert_close, jax_small_params
 
 RATIO = 0.25
 

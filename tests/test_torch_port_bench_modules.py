@@ -52,7 +52,7 @@ from learned_pmctf_tpu_torch.models.layers import (
 from learned_pmctf_tpu_torch.models.pmctf import build_pmctf, empty_dpb
 from learned_pmctf_tpu_torch.models.postprocess import PostProcess
 from learned_pmctf_tpu_torch.models.spynet import MEBasic
-from test_torch_port_models import _draw
+from torch_port_helpers import _draw
 
 # widths 16-32: the MV coder at 16 channels, the four-step priors at 32
 MOD = dict(decomp_levels=2, num_me_stages=1, channel_mv=16, channel_n=16,

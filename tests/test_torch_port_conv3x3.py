@@ -1,5 +1,6 @@
 """Port parity, conv3x3: the port's fused 3x3 conv against the JAX
-package's Pallas kernel (interpret mode) and its XLA oracle, and the
+package's Pallas kernel (interpret mode) and its XLA oracle
+(test_torch_port_conv3x3_2.py to _5.py, with the helpers here), and the
 port's PostProcess against the JAX PostProcess.
 
 On the CPU the wrapper runs its plain version; the CUDA kernels themselves
@@ -12,10 +13,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from learned_pmctf_tpu.models.postprocess import PostProcess as JaxPostProcess
-from learned_pmctf_tpu.ops import pallas_conv as pc
 
 from learned_pmctf_tpu_torch.models.postprocess import PostProcess
 from learned_pmctf_tpu_torch.ops import conv3x3 as c3
@@ -54,29 +53,6 @@ def _port(x, w, b, r, act):
 def _jax_args(x, w, b, r):
     return (jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
             None if r is None else jnp.asarray(r))
-
-
-@pytest.mark.parametrize("n,h,c,o", SHAPES)
-@pytest.mark.parametrize("act,res", EPILOGUES)
-def test_conv3x3_matches_pallas_kernel(n, h, c, o, act, res):
-    x, w, b, r = _case(n, h, c, o, 128, res)
-    jx, jw, jb, jr = _jax_args(x, w, b, r)
-    with pltpu.force_tpu_interpret_mode():
-        ref = pc.conv3x3_hcw(jx, jw, jb, act=act, residual=jr)
-    got = _port(x, w, b, r, act)
-    assert float(np.max(np.abs(got - np.asarray(ref)))) < 1e-4
-
-
-@pytest.mark.parametrize("n,h,c,o", SHAPES)
-@pytest.mark.parametrize("act,res", EPILOGUES)
-def test_conv3x3_any_width_matches_oracle(n, h, c, o, act, res):
-    # W=96 is no multiple of 128: the Pallas kernel refuses it, the port
-    # takes any width (chroma rows are 960 wide)
-    x, w, b, r = _case(n, h, c, o, 96, res, seed=1)
-    jx, jw, jb, jr = _jax_args(x, w, b, r)
-    ref = pc.conv3x3_hcw_reference(jx, jw, jb, act=act, residual=jr)
-    got = _port(x, w, b, r, act)
-    assert float(np.max(np.abs(got - np.asarray(ref)))) < 1e-4
 
 
 def test_conv3x3_checks_its_inputs():

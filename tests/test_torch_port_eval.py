@@ -1,6 +1,7 @@
-"""Port parity, the eval surface: metrics, colour conversions, padding,
-the eval JSON, YUV files, and the fixed-GOP CLI (cli/flex.py) against the
-JAX package's test_pmctf_flex.py.
+"""Port parity, the eval surface: the fixed-GOP CLI (cli/flex.py) against
+the JAX package's test_pmctf_flex.py, lossy and lossless (metrics,
+colour conversions, padding, the eval JSON and YUV files are in
+test_torch_port_eval_2.py).
 
 The JAX CLI is driven with the port's own codec behind the interface its
 run_test calls (jnp arrays in and out, the JAX CLI's build_codec replaced
@@ -15,8 +16,8 @@ text and YUV bytes exact; the CLI's per-frame PSNRs 1e-4 dB after its
 JSON's rounding to 6 digits, its bits exact.
 """
 
-import io
 import json
+import math
 import types
 
 import numpy as np
@@ -26,17 +27,9 @@ import torch
 import torch.nn.functional as F
 
 import test_pmctf_flex as jax_flex
-from learned_pmctf_tpu.ops import color as jcolor
-from learned_pmctf_tpu.utils import eval_json as jeval
-from learned_pmctf_tpu.utils import metrics as jmetrics
-from learned_pmctf_tpu.utils import yuv as jyuv
-from learned_pmctf_tpu.utils.stream import get_padding_size as jax_padding
 
 from learned_pmctf_tpu_torch.cli import flex
 from learned_pmctf_tpu_torch.gop import code_gop
-from learned_pmctf_tpu_torch.ops import color
-from learned_pmctf_tpu_torch.utils import eval_json, metrics, yuv
-from learned_pmctf_tpu_torch.utils.stream import get_padding_size
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -44,100 +37,10 @@ def _threads():
     torch.set_num_threads(2)
 
 
-def _pair(seed, shape):
-    g = np.random.default_rng(seed)
-    a = g.integers(0, 256, shape).astype(np.float32)
-    b = np.clip(a + g.normal(0, 8, shape), 0, 255).round().astype(np.float32)
-    return a, b
-
-
 # ---- metrics, colour, padding ---------------------------------------------------
-
-@pytest.mark.parametrize("hw", [(192, 192), (256, 256)])
-def test_psnr_and_ms_ssim_match_jax(hw):
-    a, b = _pair(1, (1, 3) + hw)
-    ref = float(jmetrics.psnr(jnp.asarray(a), jnp.asarray(b)))
-    assert abs(float(metrics.psnr(torch.tensor(a), torch.tensor(b))) - ref) < 1e-5
-    ref = float(jmetrics.ms_ssim(jnp.asarray(a), jnp.asarray(b)))
-    got = float(metrics.ms_ssim(torch.tensor(a), torch.tensor(b)))
-    assert abs(got - ref) < 5e-6, (got, ref)
-    assert metrics.yuv_psnr(30.0, 40.0, 50.0) == jmetrics.yuv_psnr(30.0, 40.0, 50.0)
-
-
-def test_colour_conversions_match_jax():
-    g = np.random.default_rng(2)
-    x = g.uniform(0, 255, (2, 3, 16, 24)).astype(np.float32)
-    for fn in ("rgb_to_ycbcr", "ycbcr_to_rgb"):
-        ref = np.asarray(getattr(jcolor, fn)(jnp.asarray(x)))
-        np.testing.assert_allclose(getattr(color, fn)(torch.tensor(x)).numpy(), ref,
-                                   rtol=0, atol=1e-4, err_msg=fn)
-    for ref, got in zip(jcolor.yuv444_to_420(jnp.asarray(x)),
-                        color.yuv444_to_420(torch.tensor(x))):
-        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
-    y, u, v = (g.uniform(0, 255, s).astype(np.float32)
-               for s in ((2, 1, 16, 24), (2, 1, 8, 12), (2, 1, 8, 12)))
-    for mode in ("linear", "nearest"):
-        ref = np.asarray(jcolor.yuv420_to_444(*map(jnp.asarray, (y, u, v)), mode))
-        got = color.yuv420_to_444(*map(torch.tensor, (y, u, v)), mode).numpy()
-        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4, err_msg=mode)
-    with pytest.raises(ValueError):
-        color.yuv420_to_444(*map(torch.tensor, (y, u, v)), "cubic")
-
-
-def test_padding_size_matches_jax():
-    for h, w, p in ((1080, 1920, 128), (64, 64, 128), (240, 416, 64), (128, 256, 128)):
-        assert get_padding_size(h, w, p) == jax_padding(h, w, p)
-    assert get_padding_size(100, 30) == jax_padding(100, 30)
 
 
 # ---- JSON and YUV files -------------------------------------------------------------
-
-def test_eval_json_matches_jax():
-    g = np.random.default_rng(3)
-    n = 9
-    args = (n, [0, 1, 1, 2, 1, None, 1, 1, 0], list(g.uniform(1e4, 1e5, n)),
-            [0.0] + list(g.uniform(0, 0.1, n - 1)), list(g.uniform(25, 40, n)),
-            list(g.uniform(25, 40, n)), list(g.uniform(0.9, 1, n)), 4096, 12.5)
-    texts = []
-    for mod in (jeval, eval_json):
-        log = mod.generate_log_json(*args)
-        log_opts = mod.generate_log_json(*args, gop_choice=[4, 8], ds_choice=[1],
-                                         tested_opts=[1, 2, 3])
-        text = []
-        for obj, kw in ((log, dict(float_digits=6, indent=2)), (log_opts, {}),
-                        ({"a": np.float32(1.25), "b": [np.int64(3), (1.0, 2.123456789)]},
-                         dict(float_digits=3))):
-            buf = io.StringIO()
-            mod.dump_json(obj, buf, **kw)
-            text.append(buf.getvalue())
-        texts.append(text)
-    assert texts[0] == texts[1]
-    np.testing.assert_array_equal(eval_json.interpolate_log(0.1, 10.0, 5),
-                                  jeval.interpolate_log(0.1, 10.0, 5))
-    for v in ("yes", "0", True, "F"):
-        assert eval_json.str2bool(v) == jeval.str2bool(v)
-
-
-def test_yuv_files_match_jax(tmp_path):
-    g = np.random.default_rng(4)
-    frames = [(g.integers(0, 256, (16, 24)).astype(np.uint8),
-               g.integers(0, 256, (8, 12)).astype(np.uint8),
-               g.integers(0, 256, (8, 12)).astype(np.uint8)) for _ in range(3)]
-    paths = {}
-    for name, mod in (("jax", jyuv), ("port", yuv)):
-        paths[name] = str(tmp_path / f"{name}.yuv")
-        w = mod.YUVWriter(paths[name])
-        for f in frames:
-            w.write_one_frame(*f)
-    with open(paths["jax"], "rb") as a, open(paths["port"], "rb") as b:
-        assert a.read() == b.read()
-    r = yuv.YUVReader(paths["port"], 24, 16, start_index=1)
-    rj = jyuv.YUVReader(paths["jax"], 24, 16, start_index=1)
-    for f in frames[1:]:
-        got, ref = r.read_one_frame(), rj.read_one_frame()
-        for a, b, c in zip(got, ref, f):
-            np.testing.assert_array_equal(a, b)
-            np.testing.assert_array_equal(a, c)
 
 
 # ---- the CLI -----------------------------------------------------------------------
@@ -192,6 +95,8 @@ def _compare(port, ref, path=""):
         assert len(port) == len(ref), path
         for i, (p, r) in enumerate(zip(port, ref)):
             _compare(p, r, f"{path}[{i}]")
+    elif isinstance(ref, float) and "time" not in path and math.isinf(ref):
+        assert port == ref, (path, port, ref)  # a lossless frame's PSNR
     elif isinstance(ref, float) and "time" not in path:
         tol = 1e-4 if "psnr" in path else 5e-6 if "ssim" in path else 0.0
         assert abs(port - ref) <= tol, (path, port, ref)
@@ -222,12 +127,16 @@ def _run_both(tmp_path, monkeypatch, extra, q_list, stream=False):
     codec.close()
     port, ref = _outputs(port_out, q_list), _outputs(jax_out, q_list)
     _compare(port, ref)
+    lossless = "--lossless" in extra
     for name in port:
         if name == "_summary":
             continue
         log = port[name]["synthetic_ds"]["synthetic"]
         assert all(b > 0 for b in log["frame_bpp"])
-        assert all(np.isfinite(log["frame_psnr"] + log["frame_psnr_rgb"]))
+        if lossless:  # the decoded frames are the input: PSNR inf
+            assert all(np.isposinf(log["frame_psnr"] + log["frame_psnr_rgb"]))
+        else:
+            assert all(np.isfinite(log["frame_psnr"] + log["frame_psnr_rgb"]))
         assert log["frame_type"] == [0, 1, 1, 1]
     for q in q_list:
         yuv_files = [tmp_path / f"dec_{n}" / "synthetic" / f"q{q}" / "decoded.yuv"
@@ -274,8 +183,17 @@ def test_cli_fast_warp_matches_jax_cli(tmp_path, monkeypatch):
     assert codec.model.optic_flow.fast_warp
 
 
-@pytest.mark.parametrize("flag", [["--q_batch"], ["--seq_batch", "2"], ["--shard_q"],
-                                  ["--lossless"]])
+@pytest.mark.parametrize("stream", [False, pytest.param(True, marks=pytest.mark.slow)])
+def test_cli_lossless_matches_jax_cli(tmp_path, monkeypatch, stream):
+    """--lossless (test_pmctf_flex.py:50,117): the lossless model, every
+    decoded frame the input (PSNR inf in both JSONs, as JAX's psnr gives
+    it), from the estimate and from real streams."""
+    extra = ["--q_index", "10", "--lossless"] + (["--write_stream", "1"] if stream else [])
+    codec, port = _run_both(tmp_path, monkeypatch, extra, [10], stream=stream)
+    assert not codec.model.lossy and not codec.model.hp_coder.lossy
+
+
+@pytest.mark.parametrize("flag", [["--shard_q"]])
 def test_cli_refuses_what_is_not_ported(flag, capsys):
     with pytest.raises(SystemExit):
         flex.parse_args(SMALL_ARGS + flag)

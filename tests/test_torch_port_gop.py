@@ -19,7 +19,7 @@ from learned_pmctf_tpu.models import PMCTF as JaxPMCTF
 from learned_pmctf_tpu_torch.codec.video_codec import PMCTFCodec
 from learned_pmctf_tpu_torch.gop import code_gop, gop_schedule, stream_gop
 from learned_pmctf_tpu_torch.models.pmctf import empty_dpb
-from test_torch_port_models import (jax_small_model, jax_small_params,
+from torch_port_helpers import (jax_small_model, jax_small_params,
                                     port_small_model)
 
 Q = 10.0

@@ -2,15 +2,9 @@
 learned_pmctf_tpu_torch against its flax counterpart, with the same
 weights (carried by convert.params_from_jax) on the same numpy inputs.
 
-Small config (as tests/test_models.py): decomp_levels=2,
-num_me_stages=2, channel_mv=8, channel_n=8, features=16, ar_features=16,
-64x64 luma, 32x32 chroma. The flax side runs eagerly on the CPU.
-
-Weights: the parameter tree is the one flax builds (its names and shapes
-come from jax.eval_shape of PMCTF.init over full_init_graph); the values
-are numpy draws from the distributions of flax's initializers, with
-non-zero biases and perturbed scales so that every parameter matters.
-(A jitted flax init of this model takes minutes to compile on the CPU.)
+The small config, its weights and the comparisons are in
+torch_port_helpers.py; the lifting, context and four-step tests are in
+test_torch_port_models_2.py.
 """
 
 import numpy as np
@@ -20,97 +14,15 @@ import jax.numpy as jnp
 import torch
 
 from learned_pmctf_tpu.models import PMCTF as JaxPMCTF
-from learned_pmctf_tpu.models.context import (
-    ContextFusionFourStep as JaxFourStep, SubbandContext as JaxSubbandContext)
 from learned_pmctf_tpu.models.pwave import PWave as JaxPWave
-from learned_pmctf_tpu.models.wavelet import (
-    LiftingScheme2D as JaxLifting2D, TemporalLifting as JaxTemporal)
-from learned_pmctf_tpu.ops.lifting import CDF97_COEFFS
+from learned_pmctf_tpu.models.wavelet import TemporalLifting as JaxTemporal
 
 from learned_pmctf_tpu_torch.convert import params_from_jax
-from learned_pmctf_tpu_torch.models.pmctf import build_pmctf, empty_dpb
-from learned_pmctf_tpu_torch.models.wavelet import LiftingScheme2D
+from learned_pmctf_tpu_torch.models.pmctf import empty_dpb
+from torch_port_helpers import (SMALL, assert_close, assert_rel, frames,
+                                jax_small_model, jax_small_params, port_small_model)
 
-SMALL = dict(decomp_levels=2, num_me_stages=2, channel_mv=8, channel_n=8,
-             features=16, ar_features=16)
 Q = 10.0
-
-_SKIP_TAPS = {"conv_p1": (0.0, CDF97_COEFFS[0], CDF97_COEFFS[0]),
-              "conv_u1": (CDF97_COEFFS[1], CDF97_COEFFS[1], 0.0),
-              "conv_p2": (0.0, CDF97_COEFFS[2], CDF97_COEFFS[2]),
-              "conv_u2": (CDF97_COEFFS[3], CDF97_COEFFS[3], 0.0)}
-_SCALES = {"scale_l": CDF97_COEFFS[5], "scale_h": CDF97_COEFFS[4],
-           "scale_p": 1.0 / np.sqrt(2.0), "scale_u": 0.5}
-
-
-def jax_small_model():
-    return JaxPMCTF(ll_mode="fourstep", warp_mode="exact", spynet_luma=True,
-                    **SMALL)
-
-
-def _draw(path, shape, g):
-    name, parent = path[-1], path[-2] if len(path) > 1 else ""
-    if name == "kernel" and parent in _SKIP_TAPS:
-        return (np.asarray(_SKIP_TAPS[parent]).reshape(shape)
-                + g.normal(0, 0.01, shape))
-    if name == "kernel":
-        return np.clip(g.normal(0, 0.0227, shape), -0.0455, 0.0455)
-    if name == "bias":
-        return g.normal(0, 0.02, shape)
-    if name in ("QP", "QP_ll"):
-        return np.exp(np.log(1 / 16) + g.normal(0, 0.3, shape))
-    if name in ("hp_q_scale", "mv_y_q_scale_enc", "mv_y_q_scale_dec"):
-        return np.exp(g.normal(0, 0.1, shape))
-    if name in _SCALES:
-        return np.full(shape, _SCALES[name] * (1 + g.normal(0, 0.01)))
-    if name in ("h", "b", "a"):  # BitEstimator
-        return g.normal(0, 0.01, shape)
-    raise KeyError(path)
-
-
-def jax_small_params(seed=0):
-    """{"params": tree} of numpy arrays for jax_small_model()."""
-    x = jnp.zeros((1, 1, 64, 64), jnp.float32)
-    shapes = jax.eval_shape(lambda: jax_small_model().init(
-        {"params": jax.random.PRNGKey(0)}, x, x, 10, empty_dpb(),
-        method=JaxPMCTF.full_init_graph))
-    g = np.random.default_rng(seed)
-    return jax.tree_util.tree_map_with_path(
-        lambda p, s: _draw(tuple(str(k.key) for k in p), s.shape, g)
-        .astype(np.float32), shapes)
-
-
-def port_small_model(params):
-    model = build_pmctf(device="cpu", **SMALL)
-    model.load_state_dict(params_from_jax(params), strict=True)
-    return model
-
-
-def frames(seed, luma=(1, 1, 64, 64), chroma=(2, 1, 32, 32)):
-    """A luma pair and a chroma pair of 8-bit planes, cur = ref + noise."""
-    g = np.random.default_rng(seed)
-    out = []
-    for shape in (luma, chroma):
-        ref = g.integers(0, 256, shape).astype(np.float32)
-        cur = np.clip(ref + g.normal(0, 8, shape), 0, 255).astype(np.float32)
-        out.append((ref, cur))
-    return out
-
-
-def numpy_of(x):
-    if isinstance(x, torch.Tensor):
-        return x.detach().numpy()
-    return np.asarray(x)
-
-
-def assert_close(port, ref, tol, what):
-    err = float(np.max(np.abs(numpy_of(port) - numpy_of(ref))))
-    assert err < tol, (what, err, tol)
-
-
-def assert_rel(port, ref, tol, what, floor=1.0):
-    p, r = float(numpy_of(port)), float(numpy_of(ref))
-    assert abs(p - r) <= tol * max(abs(r), floor), (what, p, r)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -142,40 +54,6 @@ def test_params_from_jax_consumes_every_leaf(models):
         params_from_jax(extra)
 
 
-def assert_rounding_close(port, ref, what, share=0.01):
-    """Lossless paths round every lifting increment: where an increment
-    lies within float noise of a half, the two frameworks may round it
-    apart. Such flips are whole steps and rare."""
-    d = np.abs(numpy_of(port) - numpy_of(ref))
-    assert np.all(np.abs(d - np.round(d)) < 2e-3), (what, float(d.max()))
-    assert np.mean(d > 1e-3) < share, (what, float(np.mean(d > 1e-3)))
-
-
-@pytest.mark.parametrize("lossy", [True, False])
-def test_lifting_2d_forward_backward(models, lossy):
-    _, jp, port, _ = models
-    x = np.random.default_rng(1).integers(0, 256, (1, 1, 64, 64)).astype(np.float32)
-    sub = {"params": jp["params"]["hp_coder"]["wavelet"]}
-    jm = JaxLifting2D(in_ch=1, lossy=lossy)
-    ref = jm.apply(sub, jnp.asarray(x))
-    lift = LiftingScheme2D(1, 8, lossy)
-    lift.load_state_dict(port.hp_coder.wavelet_transform.state_dict(), strict=True)
-    check = ((lambda p, r, w: assert_close(p, r, 2e-3, w)) if lossy
-             else assert_rounding_close)
-    with torch.no_grad():
-        got = lift.forward_lift_2d(torch.tensor(x))
-        for k in ("ll", "lh", "hl", "hh", "l", "h"):
-            check(got[k], ref[k], f"lift2d[{k}]")
-        bands = {k: numpy_of(ref[k]) for k in ("ll", "lh", "hl", "hh")}
-        ref_back = jm.apply(sub, {k: jnp.asarray(v) for k, v in bands.items()},
-                            method=JaxLifting2D.backward_lift_2d)
-        back = lift.backward_lift_2d({k: torch.tensor(v) for k, v in bands.items()})
-        check(back, ref_back, "lift2d backward")
-        own = lift.backward_lift_2d({k: got[k] for k in ("ll", "lh", "hl", "hh")})
-    # perfect reconstruction; exact when every increment is rounded
-    assert_close(own, x, 5e-2 if lossy else 1e-6, "lift2d perfect reconstruction")
-
-
 def test_temporal_lifting(models):
     _, jp, port, _ = models
     x = np.random.default_rng(2).normal(0, 40, (2, 1, 32, 32)).astype(np.float32)
@@ -186,56 +64,6 @@ def test_temporal_lifting(models):
             ref = JaxTemporal().apply(sub, jnp.asarray(x),
                                       method=getattr(JaxTemporal, name))
             assert_close(getattr(tl, name)(torch.tensor(x)), ref, 2e-3, name)
-
-
-@pytest.mark.parametrize("upsample_level", [None, 0])
-def test_subband_context_step(models, upsample_level):
-    _, jp, port, _ = models
-    g = np.random.default_rng(3)
-    sb = g.normal(0, 10, (1, 1, 16, 16)).astype(np.float32)
-    states = tuple(tuple(g.normal(0, 0.5, (1, c, 16, 16)).astype(np.float32)
-                         for _ in range(2)) for c in (32, 32, 3))
-    sub = {"params": jp["params"]["hp_coder"]["context_prediction"]}
-    ref_ctx, ref_states = JaxSubbandContext(in_ch=1, decomp_levels=2).apply(
-        sub, jnp.asarray(sb), jax.tree_util.tree_map(jnp.asarray, states),
-        upsample_level, method=JaxSubbandContext.step)
-    with torch.no_grad():
-        ctx, new_states = port.hp_coder.context_prediction.step(
-            torch.tensor(sb), jax.tree_util.tree_map(torch.tensor, states),
-            upsample_level)
-    assert_close(ctx, ref_ctx, 2e-3, "context")
-    for (h, c), (rh, rc) in zip(new_states, ref_states):
-        assert_close(h, rh, 2e-3, "h")
-        assert_close(c, rc, 2e-3, "c")
-
-
-@pytest.mark.parametrize("key", ["0_lh", "1_hh", "ll"])
-def test_context_fusion_four_step(models, key):
-    _, jp, port, _ = models
-    g = np.random.default_rng(4)
-    lvl, band = (1, "ll") if key == "ll" else (int(key[0]), key[2:])
-    size = 16 if lvl == 1 else 32
-    x = (g.normal(0, 6, (1, 1, size, size))).astype(np.float32)
-    ctx = g.normal(0, 1, (1, 1, size, size)).astype(np.float32)
-    prev = (g.normal(0, 6, (1, 1, size // 2, size // 2)).astype(np.float32)
-            if lvl == 0 else None)
-    use_ctx = key != "ll"
-    jm = JaxFourStep(in_ch=1, ctx_ch=2 if lvl == 0 else 1,
-                     features=SMALL["ar_features" if key == "ll" else "features"],
-                     use_ctx=use_ctx)
-    sub = {"params": jp["params"]["hp_coder"][f"context_fusion_{key}"]}
-    kw = {}
-    if use_ctx:
-        kw = dict(context=jnp.asarray(ctx),
-                  prev_subband=None if prev is None else jnp.asarray(prev))
-    ref = jm.apply(sub, jnp.asarray(x), training=False, **kw)
-    if use_ctx:
-        kw = dict(context=torch.tensor(ctx),
-                  prev_subband=None if prev is None else torch.tensor(prev))
-    with torch.no_grad():
-        got = port.hp_coder.context_fusion[lvl][band](torch.tensor(x), **kw)
-    for name, p, r in zip(("x_res", "x_q", "x_hat", "s_hat"), got, ref):
-        assert_close(p, r, 2e-3, name)
 
 
 def test_pwave_forward(models):

@@ -1,5 +1,8 @@
 """Port parity, ops layer: learned_pmctf_tpu_torch.ops / entropy against
-the JAX package's functions on the same numpy inputs (CPU, f32)."""
+the JAX package's functions on the same numpy inputs (CPU, f32; the
+resampling and lifting helpers in test_torch_port_ops_2.py); and the
+rules every port test file keeps: no import of JAX in the port, entry
+points that refuse to run without CUDA, at most eight tests a file."""
 
 import ast
 import pathlib
@@ -10,14 +13,11 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from learned_pmctf_tpu.ops import lifting as jlift
-from learned_pmctf_tpu.ops import masks as jmasks
 from learned_pmctf_tpu.ops import quant as jquant
-from learned_pmctf_tpu.ops import resample as jres
 from learned_pmctf_tpu.ops import warp as jwarp
 from learned_pmctf_tpu.entropy import distributions as jdist
 
-from learned_pmctf_tpu_torch.ops import lifting, masks, quant, resample, warp
+from learned_pmctf_tpu_torch.ops import quant, warp
 from learned_pmctf_tpu_torch.entropy import distributions
 
 ATOL = 1e-4
@@ -44,21 +44,6 @@ def test_flow_warp_matches_jax():
     flow = g.normal(0, 6, (2, 2, 32, 40)).astype(np.float32)
     _close(warp.flow_warp(torch.tensor(feat), torch.tensor(flow)),
            jwarp.flow_warp(jnp.asarray(feat), jnp.asarray(flow)))
-
-
-@pytest.mark.parametrize("shape", [(1, 2, 64, 64), (2, 1, 36, 20)])
-def test_bilinear_downsample_antialias_matches_jax(shape):
-    x = np.random.default_rng(1).normal(0, 60, shape).astype(np.float32)
-    _close(resample.bilinear_downsample(torch.tensor(x)),
-           jres.bilinear_downsample(jnp.asarray(x)))
-
-
-def test_bilinear_upsample_avg_pool_nearest_match_jax():
-    x = np.random.default_rng(2).normal(0, 60, (2, 2, 16, 24)).astype(np.float32)
-    tx, jx = torch.tensor(x), jnp.asarray(x)
-    _close(resample.bilinear_upsample(tx), jres.bilinear_upsample(jx))
-    _close(resample.avg_pool2(tx), jres.avg_pool2(jx))
-    _close(resample.nearest_upsample(tx), jres.nearest_upsample(jx))
 
 
 def test_laplace_bits_matches_jax():
@@ -92,19 +77,6 @@ def test_lower_bound_grad_rule_matches_jax():
     jy, vjp = jax.vjp(lambda a: jquant.lower_bound(a, 0.5), jnp.asarray(x))
     _close(y, jy, atol=0)
     _close(tx.grad, vjp(jnp.asarray(up))[0], atol=0)
-
-
-def test_lifting_helpers_and_masks_match_jax():
-    x = np.random.default_rng(6).normal(0, 9, (1, 2, 12, 8)).astype(np.float32)
-    tx, jx = torch.tensor(x), jnp.asarray(x)
-    for p, r in zip(lifting.split_even_odd(tx), jlift.split_even_odd(jx)):
-        _close(p, r, atol=0)
-    _close(lifting.merge_even_odd(*lifting.split_even_odd(tx)), x, atol=0)
-    _close(lifting.reflect_pad_rows(tx), jlift.reflect_pad_rows(jx), atol=0)
-    assert lifting.CDF97_COEFFS == jlift.CDF97_COEFFS
-    for p, r in zip(masks.checkerboard_masks(6, 10),
-                    jmasks.checkerboard_masks(6, 10)):
-        _close(p, r, atol=0)
 
 
 def _imported_modules(path):
@@ -148,3 +120,31 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
     from learned_pmctf_tpu_torch.cli import flex
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         flex.main(["--synthetic", "4", "--synthetic_size", "64x64"])
+
+
+MAX_TESTS_A_FILE = 8
+
+
+def test_port_test_files_stay_small():
+    """No tests/test_torch_port_*.py file collects more than eight tests
+    outside `slow`: pytest-xdist's --dist loadfile hands out the files
+    with the most tests first, and tests/test_parallel.py (eight tests,
+    the suite's longest file) must start among the first files, or the
+    tier-1 run outlasts its clock."""
+    import collections
+    import os
+    import subprocess
+    import sys
+    tests = pathlib.Path(__file__).resolve().parent
+    files = sorted(str(p.relative_to(tests.parent)) for p in tests.glob("test_torch_port_*.py"))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    run = subprocess.run(
+        [sys.executable, "-m", "pytest", "--collect-only", "-q", "-m", "not slow",
+         "-p", "no:cacheprovider", "-p", "no:randomly", "-p", "no:xdist", *files],
+        cwd=tests.parent, env=env, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+    counts = collections.Counter(line.split("::")[0] for line in run.stdout.splitlines()
+                                 if "::" in line)
+    assert len(counts) > 30, counts
+    too_many = {f: n for f, n in counts.items() if n > MAX_TESTS_A_FILE}
+    assert not too_many, too_many

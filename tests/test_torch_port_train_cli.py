@@ -1,7 +1,9 @@
 """The training CLIs (cli/train_pmctf.py, cli/train_pwave.py) on the
 CPU: one step or two of each on a temporary PNG dataset, at full width
 (the trainers have no width flags), their refusals, and the resume
-arithmetic.
+arithmetic; --lossless in both (the lossless modules are held against
+JAX in tests/test_torch_port_lossless.py, the YCoCg frames in
+tests/test_torch_port_data.py).
 """
 
 import json
@@ -37,9 +39,7 @@ def _losses(text, key):
 
 
 @pytest.mark.parametrize("module,flags", [
-    ("learned_pmctf_tpu_torch.cli.train_pmctf", ["--lossless"]),
-    ("learned_pmctf_tpu_torch.cli.train_pmctf", ["--data_parallel", "2"]),
-    ("learned_pmctf_tpu_torch.cli.train_pwave", ["--lossless"])])
+    ("learned_pmctf_tpu_torch.cli.train_pmctf", ["--data_parallel", "2"])])
 def test_train_cli_refuses_what_is_not_ported(module, flags):
     import importlib
     cli = importlib.import_module(module)
@@ -93,4 +93,44 @@ def test_train_clis_on_the_cpu(tmp_path):
     assert len(_losses(pw.stdout, r"\] loss")) == 2
     ck = tmp_path / "pw" / "pwave_BS1_LR0.0001" / "checkpoint_best_loss"
     assert json.loads((ck / "meta.json").read_text())["epoch"] == 0
+    assert "valid loss" in pw.stdout
+
+
+def test_train_pmctf_cli_lossless(tmp_path):
+    """--lossless (train_pmctf.py:39,114,145): a lossless PMCTF on YCoCg
+    frames; its GOP-2 step reconstructs exactly (mse 0, as JAX's lossless
+    step does), and its checkpoint loads into a lossless model."""
+    import torch
+    from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
+    data = tmp_path / "vimeo"
+    write_vimeo_pngs(str(data), sequences=2, frames=8, h=64, w=72)
+    (tmp_path / "one.json").write_text(json.dumps({
+        "total_epochs": 1, "train_lambda": [1, 27], "num_stages": 10,
+        "lr": [1e-5], "parts": ["All"], "num_frames": [2],
+        "frame_interval": [1], "num_epochs": [1]}))
+    run = _cli("learned_pmctf_tpu_torch.cli.train_pmctf",
+               ["-d", str(data), "--batch-size", "1", "--patchsize", "64", "64",
+                "--steps_per_epoch", "1", "--log_every", "1", "--device", "cpu",
+                "--warp_mode", "exact", "--num-workers", "1", "--fix_q", "10",
+                "--lossless", "--config", str(tmp_path / "one.json")], tmp_path)
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+    assert _losses(run.stdout, "mse") == [0.0]
+    assert all(v > 0 for v in _losses(run.stdout, "bppH"))
+    ck = tmp_path / "experiments" / "pmctf_BS1" / "state_epoch0" / "params.pt"
+    model = build_pmctf("cpu", lossy=False)
+    model.load_state_dict(torch.load(ck, weights_only=True), strict=True)
+
+
+def test_train_pwave_cli_lossless(tmp_path):
+    """--lossless (train_pwave.py:40,91,126-127): the lossless pWave on
+    rounded batches; each step and the validation reconstruct exactly."""
+    data = tmp_path / "vimeo"
+    write_vimeo_pngs(str(data), sequences=2, frames=8, h=64, w=72)
+    pw = _cli("learned_pmctf_tpu_torch.cli.train_pwave",
+              ["-d", str(data), "--epochs", "1", "--batch-size", "1",
+               "--test-batch-size", "2", "--patch-size", "64", "64",
+               "--steps_per_epoch", "2", "--device", "cpu", "-n", "1", "--lossless",
+               "--experiments_root", str(tmp_path / "pw")], tmp_path)
+    assert pw.returncode == 0, pw.stdout[-3000:] + pw.stderr[-3000:]
+    assert _losses(pw.stdout, r"\] loss") and _losses(pw.stdout, "mse") == [0.0, 0.0]
     assert "valid loss" in pw.stdout

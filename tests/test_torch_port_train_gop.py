@@ -45,7 +45,7 @@ from learned_pmctf_tpu_torch.training.optim import make_optimizer, trainable_mas
 from learned_pmctf_tpu_torch.training.steps import (StageGates, draw_pair_noise,
                                                     pmctf_gop_loss)
 from test_torch_port_gop import synthetic_frames
-from test_torch_port_models import (assert_close, jax_small_model,
+from torch_port_helpers import (assert_close, jax_small_model,
                                     jax_small_params, port_small_model)
 from test_torch_port_train_pwave import grad_tol
 

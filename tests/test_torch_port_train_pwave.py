@@ -36,7 +36,7 @@ from learned_pmctf_tpu.models.pwave import PWave as JaxPWave
 
 from learned_pmctf_tpu_torch.convert import jax_paths, pwave_params_from_jax
 from learned_pmctf_tpu_torch.models.pwave import PWave
-from test_torch_port_models import _draw
+from torch_port_helpers import _draw
 
 CFG = dict(decomp_levels=2, features=8, ar_features=8)
 SHAPE = (2, 1, 32, 32)
