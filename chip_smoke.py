@@ -87,7 +87,10 @@ exits non-zero:
 16. train_pwave: full-width pWave at train_pwave.py's defaults (batch 16,
    256x256), timed;
 17. train_cli: both training CLIs in their own processes on a synthetic
-   PNG dataset: all 8 curriculum stages, a resume, 2 pWave steps.
+   PNG dataset: all 8 curriculum stages, a resume (as the one NCCL rank
+   of a torchrun launcher, --data_parallel 1: its log names NCCL, it
+   writes its log and checkpoint alone), 2 pWave steps and their
+   validation pictures.
 
 18. kernel_bf16 (run after phase 3): the bf16 instance of the kernel (act_bf16's operands:
    bf16 x, weights and residual, f32 bias, bf16 out) at the main path's
@@ -114,7 +117,7 @@ exits non-zero:
    configuration's GOP-4 with its conv3x3 launches counted and one GOP
    profiled by layer, with the device's idle share.
 Phase 15 also times the stage-6 GOP-4 step with the fast warp (the
-trainer's default, cli/train_pmctf.py), with its idle share.
+trainer's default, cli/train_pmctf.py); its profile is the exact warp's.
 
 21. lossless_small_reference: the small config's lossless (lossy=False)
    GOP-4 at 64x64 on the card and on the CPU: both give the input frames
@@ -130,17 +133,43 @@ trainer's default, cli/train_pmctf.py), with its idle share.
    four single-q GOPs: bits rel 1e-4, frames 5e-2, 120 conv3x3 launches
    (N = 4 luma, 8 chroma), timed beside the four;
 24. ca_cli: the content-adaptive CLI (learned_pmctf_tpu_torch.cli.ca) in
-   its own process, full width, 16 synthetic 256x256 frames, streams:
+   its own process, full width, 8 synthetic 256x256 frames (a GOP-8
+   chunk), streams:
    exit code, one (GOP, factor) choice, finite bits and PSNRs, every
    decoded pair bit-equal to the encoder side;
 25. extra_modules: PostProcessCtx, the layers_extra convs and
    CompressionModel on the card against the CPU with the same weights.
-Phases 21-25 run after phase 20. Within the script's time, phases 8 and
-11 time one encode+decode run, phase 11 two estimate GOPs, and phases 15
-and 16 two GOP-4 or pWave steps and one GOP-16 step.
+
+26. data_parallel_small_reference: the small config of
+   tests/dp_equiv_script.py (GOP-2, batch 8, 64x128) through the
+   data-parallel train step on 2 gloo ranks of 4 rows sharing the card
+   against one process on the batch of 8: loss rel 1e-5, the reduced
+   gradients 1e-5 of each top-level module's largest, parameters rtol
+   5e-4 atol 1.5e-4 (the CPU test's tolerances);
+27. data_parallel: the same at full width and the trainer's defaults
+   (GOP-4, stage 6, batch 8, 128x128; phase 15's step, which times the
+   single process): agreement, each rank's step ms, peak memory and
+   conv3x3 launches (180 a rank, at N = 4), with phase 26's check in the
+   same spawn of the ranks (``--only data_parallel`` runs both); phase 17
+   runs the trainer CLI over NCCL, as the one rank of a torchrun launcher
+   (--data_parallel 1). NCCL across two cards is not shown on a one-card
+   machine;
+28. shard_q: the eval CLI's --q_batch --shard_q at full width, a
+   synthetic 720p GOP-4 at 4 rate points, on 2 gloo ranks sharing the
+   card (each rank the CLI's own rank entry, 2 rate points, 120 conv3x3
+   launches counted) against --q_batch in its own process: the JSONs key
+   for key, rates rel 1e-5, PSNR 1e-4 dB, both wall times;
+29. average_flow: the dataset's flow filter (cli/average_flow.py, the
+   RGB SpyNet) on a synthetic 256x448 PNG tree on the card and with
+   --device cpu: mean |flow| within 1e-4 a clip.
+Phases 21-29 run after phase 20. Within the script's time, phases 8 and
+11 time one encode+decode run (phase 11 profiles its encode+decode GOP
+only), phase 11 two estimate GOPs, phase 15 two GOP-4 steps (one with
+the fast warp), one round of the weight-gradient A/B and its counted
+GOP-16 step, and phase 16 two pWave steps.
 
 ``python3 chip_smoke.py --only lossless,q_batch`` runs phases 1-2 and the
-named phases of 21-25 alone (names as their JSON lines give them).
+named phases of 21-29 alone (names as their JSON lines give them).
 ``python3 chip_smoke.py --kernels`` runs phases 1-3 and 18 alone, and
 ``python3 chip_smoke.py --kernels --ab DIR`` then times the variants of
 both kernel phases' main-path shapes and of the training 1->64 input
@@ -155,8 +184,10 @@ GOP-4 for the f32 variants and the bench configuration's GOP-4 for the
 bf16 ones, ``stream_launches`` the stream GOP-4, ``ar_launches`` and
 ``ar_stream_launches`` the same with the AR LL coder, ``train_launches``
 a GOP-4 train step, ``bench_launches`` the bench configuration's GOP-4,
-``lossless_launches`` the lossless GOPs (none) and ``q_batch_launches``
-the q-batched GOP-4;
+``lossless_launches`` the lossless GOPs (none), ``q_batch_launches``
+the q-batched GOP-4, ``dp_train_launches`` rank 0's data-parallel GOP-4
+train step and ``shard_q_launches`` rank 0's half of the sharded q
+batch;
 each path launches exactly its variants: the f32 paths the f32 ones, the
 bench the bf16 ones, and every launch of a direct variant on a path runs
 its C = 1 kernel, as the C layer counts them) and, last, {"ok": true,
@@ -1048,10 +1079,13 @@ def stream_runs(model, luma, chroma, est_bits, ll_mode="fourstep"):
         _, enc_stats, _ = run("encode_only", sides=1, skip_decoding=True)
         _, async_stats, _ = run("decode_async", decode_async=True)
         nbytes = {f: len(b) for f, b in ref_files.items()}
+        # the AR stream's encode-only GOP is the four-step one's but for
+        # its AR net: profiled once, with the four-step coder
         profiles = {name: profile_stream(codec, os.path.join(root, f"prof_{name}"),
                                          luma, chroma, **kw)
                     for name, kw in (("encode_decode", {}),
-                                     ("encode_only", {"skip_decoding": True}))}
+                                     ("encode_only", {"skip_decoding": True}))
+                    if ll_mode == "fourstep" or name == "encode_decode"}
     finally:
         codec.close()
         shutil.rmtree(root)
@@ -1752,8 +1786,9 @@ def check_packs_fresh(model, step, frames, noise):
 
 def timed_train_steps(step, frames, noise, steps, expect):
     """A warm-up step, whose conv3x3 launches are counted against
-    `expect`, then `steps` timed steps (host clock, synchronized); the
-    loss of every step must be finite."""
+    `expect`, then `steps` timed steps (host clock, synchronized; with
+    none, the counted step is the one timed); the loss of every step must
+    be finite."""
     from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3, packed_weights
 
     def run():
@@ -1765,18 +1800,23 @@ def timed_train_steps(step, frames, noise, steps, expect):
 
     count_from_zero()
     packs = packed_weights.packs
-    run()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    log = run()
+    first_ms = (time.perf_counter() - t) * 1e3
     launches, by_variant = conv3x3.launches, counted("train step")
     packs = packed_weights.packs - packs
     if by_variant != expect:
         raise AssertionError(f"train step: conv3x3 launches by variant {by_variant}, "
                              f"expected {expect}")
-    torch.cuda.reset_peak_memory_stats()
-    times, log = [], None
+    if steps:
+        torch.cuda.reset_peak_memory_stats()
+    times = []
     for _ in range(steps):
         t = time.perf_counter()
         log = run()
         times.append((time.perf_counter() - t) * 1e3)
+    times = times or [first_ms]
     return {"step_ms": statistics.median(times), "step_ms_min": min(times),
             "step_ms_max": max(times), "step_ms_runs": times,
             "conv3x3_launches": launches, "conv3x3_launches_by_variant": by_variant,
@@ -1847,12 +1887,14 @@ def phase_train_pmctf(smi):
     if not all(0 < v < float("inf") for v in norms.values()):
         raise AssertionError(f"train_pmctf: gradient norms {norms}")
     gop4["packs"] = check_packs_fresh(model, step4, frames4, noise)
-    gop4["weight_grad_ab"] = weight_grad_ab(step4, frames4, noise)
+    gop4["weight_grad_ab"] = weight_grad_ab(step4, frames4, noise, rounds=1)
     row["gop4_stage6"] = gop4
-    row["gop4_stage6_fast_warp"] = fast_warp_steps(model, opt, step4, frames4, noise, w)
+    row["gop4_stage6_fast_warp"] = fast_warp_steps(model, step4, frames4, noise, w)
     step16 = make_pmctf_train_step(model, opt, 16, StageGates.for_stage(7))
     frames16 = train_frames(16, TRAIN_BATCH, TRAIN_PATCH, seed=12)
-    gop16 = timed_train_steps(step16, frames16, noise, 1, train_launch_expect(16, w))
+    # the GOP-16 pairs have the GOP-4 pairs' shapes: its counted step is
+    # the one timed
+    gop16 = timed_train_steps(step16, frames16, noise, 0, train_launch_expect(16, w))
     gop16["frames_per_s"] = TRAIN_BATCH * 16 / (gop16["step_ms"] / 1e3)
     gop16["weight_packs_reckoned"] = 14 * (2 + 16)
     row["gop16_stage8"] = gop16
@@ -1863,21 +1905,18 @@ def phase_train_pmctf(smi):
     return gop4["conv3x3_launches_by_variant"]
 
 
-def fast_warp_steps(model, opt, step, frames, noise, w):
+def fast_warp_steps(model, step, frames, noise, w):
     """The stage-6 GOP-4 step with the fast warp, cli/train_pmctf.py's
     default (the same model with warp_mode "fast" in the temporal lifting
     and SpyNet's pyramid, as build_pmctf(warp_mode="fast") makes it): a
-    counted warm-up, 2 timed steps, finite gradients, a profiled step."""
+    counted warm-up, a timed step, finite gradients."""
     model.warp_mode, model.optic_flow.fast_warp = "fast", True
     try:
-        out = timed_train_steps(step, frames, noise, 2, train_launch_expect(4, w))
+        out = timed_train_steps(step, frames, noise, 1, train_launch_expect(4, w))
         out["frames_per_s"] = TRAIN_BATCH * 4 / (out["step_ms"] / 1e3)
         out["grad_norms"] = norms = grad_norms(model)
         if not all(0 < v < float("inf") for v in norms.values()):
             raise AssertionError(f"train_pmctf fast warp: gradient norms {norms}")
-        prof = profile_train_step(model, opt, frames, noise)
-        out["profile"] = {k: prof[k] for k in ("wall_ms_profiled", "device_busy_ms",
-                                               "device_idle_share", "device_ms_by_part")}
     finally:
         model.warp_mode, model.optic_flow.fast_warp = "exact", False
     return out
@@ -2055,8 +2094,8 @@ def phase_train_cli(smi):
     """The training CLIs as a user runs them, each in its own process, on
     a synthetic PNG dataset: train_pmctf through all 8 stages of
     configs/train_mctf_smoke.json (1 step an epoch, batch 2, 64x64,
-    exact warp), a resume from its stage-7 checkpoint, and train_pwave for
-    2 steps."""
+    exact warp), a resume from its stage-7 checkpoint over NCCL, and
+    train_pwave for 2 steps."""
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as d:
         data = os.path.join(d, "vimeo")
@@ -2078,11 +2117,18 @@ def phase_train_cli(smi):
         with open(os.path.join(exp, "state_epoch7", "meta.json")) as f:
             meta = json.load(f)
         rd = logged(out, " rd")
-        out2, wall2 = run_cli(mod, common + ["--checkpoint",
-                                             os.path.join(exp, "state_epoch6"),
-                                             "--resume"], d, 300)
-        if "resume at epoch 7, stage 8" not in out2:
-            raise AssertionError(f"resume log:\n{out2[-2000:]}")
+        # the resume runs as the one rank of a torchrun launcher over NCCL
+        # (--data_parallel 1): the data-parallel trainer's wiring
+        logs = set(os.listdir(exp))
+        out2, wall2 = run_cli("torch.distributed.run", [
+            "--standalone", "--nproc_per_node", "1", "-m", mod, *common, "--checkpoint",
+            os.path.join(exp, "state_epoch6"), "--resume", "--data_parallel", "1"], d, 300)
+        nccl = "data parallel: 1 ranks of 2 rows (nccl)"
+        wrote = sorted(set(os.listdir(exp)) - logs)
+        if ("resume at epoch 7, stage 8" not in out2 or nccl not in out2
+                or sorted(os.listdir(d)) != ["experiments", "vimeo"] or len(wrote) != 1
+                or not wrote[0].startswith("train_")):
+            raise AssertionError(f"resume over NCCL wrote {wrote}:\n{out2[-2000:]}")
         rd2 = logged(out2, " rd")
         out3, wall3 = run_cli("learned_pmctf_tpu_torch.cli.train_pwave",
                               ["-d", data, "--epochs", "1", "--batch-size", "2",
@@ -2090,10 +2136,13 @@ def phase_train_cli(smi):
                                "--steps_per_epoch", "2", "-n", "2",
                                "--experiments_root", os.path.join(d, "pw")], d, 300)
         loss = logged(out3, r"\] loss")
-        if not os.path.isdir(os.path.join(d, "pw", "pwave_BS2_LR0.0001",
-                                          "checkpoint_best_loss")):
+        pw = os.path.join(d, "pw", "pwave_BS2_LR0.0001")
+        if not os.path.isdir(os.path.join(pw, "checkpoint_best_loss")):
             raise AssertionError("train_pwave wrote no checkpoint")
-    emit({"phase": "train_cli", "train_pmctf_s": wall, "resume_s": wall2,
+        if not os.path.isfile(os.path.join(pw, "web", "index.html")):
+            raise AssertionError("train_pwave drew no validation pictures")
+    emit({"phase": "train_cli", "train_pmctf_s": wall, "resume_nccl_s": wall2,
+          "resume_log_line": nccl,
           "train_pwave_s": wall3, "rd_losses": rd, "resume_rd_losses": rd2,
           "pwave_losses": loss, "last_meta": meta, "checkpoints": ckpts,
           "card": smi})
@@ -2346,14 +2395,14 @@ def phase_q_batch(smi):
 
 def phase_ca_cli(smi):
     """The content-adaptive CLI as a user runs it, in its own process:
-    full width, 16 synthetic 256x256 frames, one GOP-16 chunk searched
-    over GOP sizes {16, 8, 4} and ME factors {1, 2, 4}, every trial
+    full width, 8 synthetic 256x256 frames, one GOP-8 chunk searched
+    over GOP sizes {8, 4} and ME factors {1, 2, 4}, every trial
     written to streams and decoded (the CLI stops on a decoded plane that
     differs from the encoder side)."""
     with tempfile.TemporaryDirectory() as d:
         cmd = [sys.executable, "-m", "learned_pmctf_tpu_torch.cli.ca",
-               "--synthetic", "16", "--synthetic_size", "256x256",
-               "--force_intra_period", "16", "--q_index", "10", "--num_me_stages", "4",
+               "--synthetic", "8", "--synthetic_size", "256x256",
+               "--force_intra_period", "8", "--q_index", "10", "--num_me_stages", "4",
                "--write_stream", "1", "--verbose", "1",
                "--output_path", os.path.join(d, "ca.json"),
                "--stream_path", os.path.join(d, "bin")]
@@ -2369,7 +2418,7 @@ def phase_ca_cli(smi):
     checked = re.findall(r"decoded pairs bit-exact: (\d+)", proc.stdout)
     vals = log["frame_bpp"] + log["frame_psnr"]
     if not (len(log["gop_choice"]) == len(log["ds_choice"]) == 1
-            and log["gop_choice"][0] in (16, 8, 4) and log["ds_choice"][0] in (1, 2, 4)
+            and log["gop_choice"][0] in (8, 4) and log["ds_choice"][0] in (1, 2, 4)
             and all(v == v and abs(v) != float("inf") for v in vals)
             and all(b > 0 for b in log["frame_bpp"]) and checked and int(checked[-1]) > 0):
         raise AssertionError(f"ca: bad log {log} or no decode checks:\n{proc.stdout[-2000:]}")
@@ -2446,6 +2495,288 @@ def phase_extra_modules(smi):
           "tol": {"modules": EXTRA_TOL, "bits": 1e-3}, "conv3x3_launches": 0, "card": smi})
 
 
+# ---- data parallelism and the dataset's flow filter (phases 26-29) ------------
+
+DP_SMALL = dict(decomp_levels=1, num_me_stages=1, channel_mv=8, channel_n=8,
+                features=8, ar_features=8, spynet_levels=2)  # dp_equiv_script.py's
+DP_RANKS = 2
+# tests/test_torch_port_parallel.py's (dp_equiv_script.py:91's): the loss,
+# the reduced gradients of the largest in each top-level module, the
+# parameters
+DP_LOSS_RTOL, DP_GRAD_REL, DP_P_RTOL, DP_P_ATOL = 1e-5, 1e-5, 5e-4, 1.5e-4
+SHARD_Q_SIZE = "720x1280"
+FLOW_ABS = 1e-4  # the flow filter's mean |flow|, card against CPU
+
+
+def dp_setup(config, group=None):
+    """(model, step, frames) of the data-parallel check on this process:
+    "small", the small config's GOP-2 (stage 3's gates, lr 1e-4:
+    dp_equiv_script.py), or "full", full width at the trainer's defaults
+    (GOP-4, stage 6, part All, batch 8, 128x128: phase 15's step); the
+    frames of the global batch."""
+    from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
+    from learned_pmctf_tpu_torch.training.curriculum import PART_PREDICATES
+    from learned_pmctf_tpu_torch.training.optim import make_optimizer, trainable_mask
+    from learned_pmctf_tpu_torch.training.steps import StageGates, make_pmctf_train_step
+    if config == "full":
+        model = build_pmctf("cuda", seed=0, num_me_stages=2, quant_stage=False).train()
+        model.quant_stage = True
+        opt = make_optimizer(model, 1e-5, weight_decay=0.0, clip_norm=5.0,
+                             trainable=trainable_mask(model, PART_PREDICATES["All"]))
+        step = make_pmctf_train_step(model, opt, 4, StageGates.for_stage(5), group=group)
+        return model, step, train_frames(4, TRAIN_BATCH, TRAIN_PATCH, seed=11)
+    import numpy as np
+    model = build_pmctf("cuda", seed=1, **DP_SMALL).train()
+    opt = make_optimizer(model, 1e-4)
+    step = make_pmctf_train_step(model, opt, 2, StageGates.for_stage(2), group=group)
+    frames = np.random.default_rng(0).integers(0, 256, (2, 8, 1, 64, 128))
+    return model, step, torch.from_numpy(frames.astype(np.float32)).cuda()
+
+
+def dp_steps(model, step, frames, timed):
+    """The first step from the seeded weights (timed, its conv3x3 launches
+    counted; its log, gradients and parameters kept on the host), then
+    `timed` more steps (host clock, synchronized); the peak memory of
+    them all."""
+    noise = torch.Generator(device="cuda").manual_seed(7)
+    count_from_zero()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    log = step(frames, 10.0, 0.05, noise)
+    torch.cuda.synchronize()
+    out = {"first_step_ms": (time.perf_counter() - t) * 1e3,
+           "by_variant": counted("data-parallel step"),
+           "log": {k: float(v) for k, v in log.items()},
+           "grads": {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+                     if p.grad is not None},
+           "params": {k: p.detach().cpu() for k, p in model.named_parameters()}}
+    times = []
+    for _ in range(timed):
+        t = time.perf_counter()
+        step(frames, 10.0, 0.05, noise)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    out.update(step_ms_runs=times, step_ms=statistics.median(times) if times else None,
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def _dp_rank(timed, out_dir):
+    """One rank of the data-parallel checks (`timed`: config -> timed
+    steps): its rows of each global batch through the grouped step, on
+    the card it shares with the other rank (gloo: NCCL refuses two ranks
+    on one card)."""
+    import torch.distributed as dist
+    from learned_pmctf_tpu_torch.parallel import mesh
+    dp = mesh.make_mesh(device="cuda", share=True)
+    for config, steps in timed.items():
+        model, step, frames = dp_setup(config, dist.group.WORLD)
+        rows = mesh.data_rows(frames.shape[1], dp.rank, dp.world)
+        out = dp_steps(model, step, frames[:, rows].contiguous(), steps)
+        if dp.rank:  # rank 0's gradients and parameters stand for the group's
+            out.pop("grads")
+            out.pop("params")
+        torch.save(out, os.path.join(out_dir, f"{config}{dp.rank}.pt"))
+        del model, step, frames
+        torch.cuda.empty_cache()
+
+
+def dp_compare(single, ranks):
+    """The group's step against the single process's: the largest
+    relative loss gap, the largest gradient error as a share of the
+    largest gradient of its top-level module, and the parameters' worst
+    |diff|."""
+    got = ranks[0]
+    loss = max(abs(got["log"][k] - v) / max(abs(v), 1e-6) for k, v in single["log"].items())
+    largest = {}
+    for k, g in single["grads"].items():
+        largest[group_of(k)] = max(largest.get(group_of(k), 0.0), float(g.abs().max()))
+    if set(got["grads"]) != set(single["grads"]):
+        raise AssertionError("data parallel: other parameters reached a gradient")
+    grad = max(float((got["grads"][k] - g).abs().max()) / max(largest[group_of(k)], 1e-30)
+               for k, g in single["grads"].items())
+    bad = [k for k, p in single["params"].items()
+           if not torch.allclose(got["params"][k], p, rtol=DP_P_RTOL, atol=DP_P_ATOL)]
+    param = max(float((got["params"][k] - p).abs().max()) for k, p in single["params"].items())
+    agree = {"loss_max_rel_diff": loss, "grad_max_share_of_group_largest": grad,
+             "params_max_abs_diff": param, "params_outside_tol": bad[:10]}
+    if loss > DP_LOSS_RTOL or grad > DP_GRAD_REL or bad:
+        raise AssertionError(f"data parallel against one process: {agree}")
+    return agree
+
+
+def run_dp(timed):
+    """Each config of `timed` (config -> the ranks' timed steps) on one
+    process (its first step), then on DP_RANKS gloo ranks sharing the card
+    (one mesh.spawn for all); config -> (single, ranks' results,
+    agreement)."""
+    from learned_pmctf_tpu_torch.parallel import mesh
+    singles = {}
+    for config in timed:
+        model, step, frames = dp_setup(config)
+        singles[config] = dp_steps(model, step, frames, 0)
+        del model, step, frames
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        mesh.spawn(_dp_rank, DP_RANKS, (timed, d), device="cuda", backend="gloo")
+        ranks = {c: [torch.load(os.path.join(d, f"{c}{r}.pt")) for r in range(DP_RANKS)]
+                 for c in timed}
+    return {c: (singles[c], ranks[c], dp_compare(singles[c], ranks[c])) for c in timed}
+
+
+def emit_dp_small_reference(single, ranks, agree):
+    if any(r["by_variant"] != single["by_variant"] for r in ranks):
+        raise AssertionError(f"small data parallel: launches {[r['by_variant'] for r in ranks]}"
+                             f" against {single['by_variant']}")
+    emit({"phase": "data_parallel_small_reference", "config": DP_SMALL, "ranks": DP_RANKS,
+          "batch": 8, "rows_a_rank": 8 // DP_RANKS, "backend": "gloo (one card)",
+          "tol": {"loss_rel": DP_LOSS_RTOL, "grad_of_group_largest": DP_GRAD_REL,
+                  "params_rtol": DP_P_RTOL, "params_atol": DP_P_ATOL},
+          **agree, "rd_loss": single["log"]["rd_loss"]})
+
+
+def phase_data_parallel_small_reference():
+    """The small config's GOP-2 step on 2 gloo ranks of 4 rows on the card
+    against one process on the batch of 8, to the CPU test's tolerances."""
+    emit_dp_small_reference(*run_dp({"small": 0})["small"])
+
+
+def phase_data_parallel(smi):
+    """Phase 26 and the full-width check with one spawn of the ranks: at
+    the trainer's defaults, 2 gloo ranks of 4 rows on the card against one
+    process on the batch of 8 (loss, gradients and parameters after the
+    step; each rank's step ms over 2 steps after the first, peak memory
+    and conv3x3 launches). Phase 17 runs the trainer CLI over NCCL (one
+    rank); NCCL across two cards needs a machine with two."""
+    res = run_dp({"small": 0, "full": 2})
+    emit_dp_small_reference(*res["small"])
+    single, ranks, agree = res["full"]
+    expect = train_launch_expect(4, TRAIN_PATCH[1])
+    for r, out in enumerate([single] + ranks):
+        if out["by_variant"] != expect:
+            raise AssertionError(f"data parallel {'rank ' + str(r - 1) if r else 'single'}: "
+                                 f"launches {out['by_variant']}, expected {expect}")
+    emit({"phase": "data_parallel", "model": "pMCTF-L full width (seeded random weights)",
+          "gop": 4, "batch": TRAIN_BATCH, "patch": list(TRAIN_PATCH), "ranks": DP_RANKS,
+          "rows_a_rank": TRAIN_BATCH // DP_RANKS, "backend": "gloo, two ranks on one card",
+          **agree, "single_first_step_ms": single["first_step_ms"],
+          "single_peak_mem_bytes": single["peak_mem_bytes"],
+          "rank_first_step_ms": [r["first_step_ms"] for r in ranks],
+          "rank_step_ms": [r["step_ms"] for r in ranks],
+          "rank_step_ms_runs": [r["step_ms_runs"] for r in ranks],
+          "rank_peak_mem_bytes": [r["peak_mem_bytes"] for r in ranks],
+          "conv3x3_launches_a_rank": [sum(r["by_variant"].values()) for r in ranks],
+          "conv3x3_launches_by_variant_a_rank": ranks[0]["by_variant"],
+          "trainer_cli_nccl": "phase 17 (train_cli): its resume runs as the one NCCL "
+                              "rank of a torchrun launcher (--data_parallel 1)",
+          "note": "NCCL across two cards is not shown on a one-card machine: the two "
+                  "ranks share the card over gloo, and the NCCL group has one rank; "
+                  "phase 15 times the single process's step",
+          "card": smi})
+    return ranks[0]["by_variant"]
+
+
+def _shard_q_rank(argv, out_dir):
+    """One rank of cli.flex --shard_q (its own rank entry, flex.shard_rank)
+    with its conv3x3 launches counted."""
+    from learned_pmctf_tpu_torch.cli import flex
+    count_from_zero()
+    flex.shard_rank(flex.parse_args(argv))
+    torch.cuda.synchronize()
+    with open(os.path.join(out_dir, f"launches{torch.distributed.get_rank()}.json"), "w") as f:
+        json.dump(counted("sharded q batch"), f)
+
+
+def _flex_jsons(d):
+    out = {}
+    for name in sorted(os.listdir(d)):
+        with open(os.path.join(d, name)) as f:
+            out[name] = json.load(f)
+    return out
+
+
+def _json_gap(got, want, where=""):
+    """(largest relative rate gap, largest PSNR gap in dB) between two
+    flex JSONs; raises where their keys or other values differ."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"shard_q: keys at {where}: {set(got) ^ set(want)}")
+        gaps = [_json_gap(got[k], want[k], f"{where}/{k}") for k in want if "time" not in k]
+    elif isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"shard_q: lengths at {where}")
+        gaps = [_json_gap(a, b, f"{where}[{i}]") for i, (a, b) in enumerate(zip(got, want))]
+    elif isinstance(want, float):
+        if "psnr" in where:
+            return 0.0, abs(got - want)
+        return abs(got - want) / max(abs(want), 1e-6), 0.0
+    else:
+        if got != want:
+            raise AssertionError(f"shard_q: {where} {got} != {want}")
+        return 0.0, 0.0
+    return (max([g[0] for g in gaps], default=0.0), max([g[1] for g in gaps], default=0.0))
+
+
+def phase_shard_q(smi):
+    """cli.flex --q_batch --shard_q at full width, a synthetic GOP-4 at 4
+    rate points, on 2 gloo ranks sharing the card (each codes 2 rate
+    points, its launches counted) against cli.flex --q_batch in its own
+    process: the JSONs key for key, rates rel 1e-5, PSNR 1e-4 dB."""
+    from learned_pmctf_tpu_torch.parallel import mesh
+    args = ["--synthetic", "4", "--synthetic_size", SHARD_Q_SIZE, "--force_intra_period",
+            "4", "--q_index_num", "4", "--num_me_stages", "4", "--q_batch"]
+    with tempfile.TemporaryDirectory() as d:
+        _, batch_s = run_cli("learned_pmctf_tpu_torch.cli.flex",
+                             args + ["--output_path", os.path.join(d, "batch", "out.json")],
+                             d, 600)
+        t = time.perf_counter()
+        mesh.spawn(_shard_q_rank, DP_RANKS, (args + ["--shard_q", "--output_path",
+                                                     os.path.join(d, "shard", "out.json")], d),
+                   device="cuda", backend="gloo")
+        shard_s = time.perf_counter() - t
+        launches = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(d, f"launches{r}.json")) as f:
+                launches.append(json.load(f))
+        batch, shard = _flex_jsons(os.path.join(d, "batch")), _flex_jsons(os.path.join(d, "shard"))
+    rate_gap, psnr_gap = _json_gap(shard, batch)
+    if len(batch) != 5 or rate_gap > 1e-5 or psnr_gap > 1e-4:
+        raise AssertionError(f"shard_q: {sorted(batch)}, rates {rate_gap}, PSNR {psnr_gap} dB")
+    if any(sum(v.values()) != 15 * 2 * GOP for v in launches):
+        raise AssertionError(f"shard_q: conv3x3 launches a rank {launches}")
+    summary = batch["out_summary.json"]
+    emit({"phase": "shard_q", "model": "pMCTF-L full width (seeded random weights)",
+          "size": SHARD_Q_SIZE, "gop": GOP, "q_indexes": summary["quality"],
+          "ranks": DP_RANKS, "backend": "gloo, two ranks on one card",
+          "q_batch_wall_s": batch_s, "shard_q_wall_s": shard_s,
+          "rate_max_rel_diff": rate_gap, "psnr_max_abs_diff_db": psnr_gap,
+          "conv3x3_launches_by_variant_a_rank": launches, "bpp": summary["bpp"],
+          "card": smi})
+    return launches[0]
+
+
+def phase_average_flow(smi):
+    """cli.average_flow (the RGB SpyNet, seeded weights) on a synthetic
+    PNG tree at vimeo's 256x448, on the card and with --device cpu: the
+    same clips, each mean |flow| within FLOW_ABS."""
+    stats, walls = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        write_png_dataset(os.path.join(d, "vimeo"), sequences=4, frames=8, h=256, w=448)
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(d, f"{dev}.json")
+            _, walls[dev] = run_cli("learned_pmctf_tpu_torch.cli.average_flow",
+                                    ["--data", os.path.join(d, "vimeo"), "--out", out,
+                                     "--device", dev], d, 300)
+            with open(out) as f:
+                stats[dev] = json.load(f)
+    gap = max(abs(stats["cuda"][k] - v) for k, v in stats["cpu"].items())
+    if list(stats["cuda"]) != list(stats["cpu"]) or len(stats["cpu"]) != 4 or gap > FLOW_ABS:
+        raise AssertionError(f"average_flow: card {stats['cuda']} against CPU {stats['cpu']}")
+    emit({"phase": "average_flow", "clips": len(stats["cpu"]), "size": [256, 448],
+          "mean_abs_flow": stats["cuda"], "max_abs_diff_card_vs_cpu": gap, "tol": FLOW_ABS,
+          "card_wall_s": walls["cuda"], "cpu_wall_s": walls["cpu"], "card": smi})
+
+
 def kernel_entries(rows, rows_bf16, launches):
     """One entry a variant: the variant's numbers at the shape that stands
     for it, whether the shape took it or timed it beside its own.
@@ -2496,10 +2827,14 @@ def check_paths(launches):
             raise AssertionError(f"{path} launched {by_variant}, expected {sorted(want)}")
 
 
-# phases 21-25 by name, for ``--only``
+# phases 21-29 by name, for ``--only``
 NEW_PHASES = {"lossless_small_reference": lambda smi: phase_lossless_small_reference(),
               "lossless": phase_lossless, "q_batch": phase_q_batch,
-              "ca_cli": phase_ca_cli, "extra_modules": phase_extra_modules}
+              "ca_cli": phase_ca_cli, "extra_modules": phase_extra_modules,
+              "data_parallel_small_reference":
+                  lambda smi: phase_data_parallel_small_reference(),
+              "data_parallel": phase_data_parallel, "shard_q": phase_shard_q,
+              "average_flow": phase_average_flow}
 
 
 def main(argv):
@@ -2537,18 +2872,24 @@ def main(argv):
     q_batch_by_variant = phase_q_batch(smi)
     phase_ca_cli(smi)
     phase_extra_modules(smi)
+    dp_by_variant = phase_data_parallel(smi)  # phases 26 and 27
+    shard_q_by_variant = phase_shard_q(smi)
+    phase_average_flow(smi)
     # launches by path: the estimate GOP-4 ("launches"), the stream GOP-4,
     # both again with the AR LL coder, a GOP-4 train step (forward,
     # recompute and input gradients), the bench configuration's GOP-4,
-    # the lossless estimate and stream GOP-4s (none) and the q-batched
-    # GOP-4 (four rate points)
+    # the lossless estimate and stream GOP-4s (none), the q-batched
+    # GOP-4 (four rate points), rank 0's data-parallel GOP-4 train step
+    # (4 rows) and rank 0's half of the sharded q batch (2 rate points)
     launches = {"launches": by_variant, "stream_launches": stream_by_variant,
                 "ar_launches": ar_by_variant,
                 "ar_stream_launches": ar_stream_by_variant,
                 "train_launches": train_by_variant,
                 "bench_launches": bench_by_variant,
                 "lossless_launches": lossless_by_variant,
-                "q_batch_launches": q_batch_by_variant}
+                "q_batch_launches": q_batch_by_variant,
+                "dp_train_launches": dp_by_variant,
+                "shard_q_launches": shard_q_by_variant}
     check_paths(launches)
     entries = kernel_entries(rows, rows_bf16, launches)
     on_path = [e for e in entries if e["launches"] > 0]

@@ -10,7 +10,10 @@ or --seq_batch the estimate path codes every rate point, and up to
 --seq_batch sequences of one geometry, as one batch
 (PMCTFCodec.estimate_one_stage_multi), reading each sequence once.
 --lossless codes with the lossless model (PSNR then reads inf, as the
-JAX CLI writes it). Runs on CUDA unless --device cpu.
+JAX CLI writes it). Runs on CUDA unless --device cpu. --shard_q (with
+--q_batch) splits the batch's elements over ranks: each codes its
+contiguous block of sequence x rate-point elements, and rank 0 gathers
+their metrics and writes the JSON the unsharded --q_batch writes.
 
     python -m learned_pmctf_tpu_torch.cli.flex --model_path ckpt.pth \\
         --test_config configs/dataset_config.json --force_intra_period 16 \\
@@ -18,6 +21,9 @@ JAX CLI writes it). Runs on CUDA unless --device cpu.
 
     python -m learned_pmctf_tpu_torch.cli.flex --synthetic 4 \\
         --synthetic_size 256x256 --force_intra_period 4 --device cpu
+
+    torchrun --nproc_per_node 2 -m learned_pmctf_tpu_torch.cli.flex \\
+        --synthetic 4 --q_index_num 4 --q_batch --shard_q --device cpu
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from ..convert import load_reference_state_dict
 from ..gop import gop_schedule
 from ..models.pmctf import build_pmctf, empty_dpb
 from ..ops.color import ycbcr_to_rgb, yuv420_to_444
+from ..parallel import mesh
 from ..runtime import resolve_device
 from ..utils.eval_json import create_folder, dump_json, generate_log_json, str2bool
 from ..utils.metrics import ms_ssim, psnr
@@ -46,13 +53,6 @@ from ..utils.yuv import YUVReader, YUVWriter
 TORCH_CKPT = (".pth", ".pt", ".pth.tar", ".ckpt")
 PSIZE = 128  # frames are padded to multiples of this
 Q_INDEX_NUM_TOTAL = 21
-
-# options of the JAX CLI that the port does not have yet, and the
-# ROADMAP.md item that brings each
-NOT_YET = {
-    "shard_q": "A.14 (multi-device)",
-}
-
 
 def parse_args(argv):
     p = argparse.ArgumentParser(description="pMCTF fixed-GOP evaluation (PyTorch)")
@@ -108,16 +108,19 @@ def parse_args(argv):
                    help="code all q indexes as one batch (estimate path "
                         "only): the sequence is read and coded once")
     p.add_argument("--shard_q", type=str2bool, nargs="?", const=True,
-                   default=False, help="not ported yet (ROADMAP.md A.14)")
+                   default=False,
+                   help="with --q_batch: split the batch's elements over "
+                        "ranks (one a visible card, or those of a torchrun "
+                        "launcher), each coding its own rate points")
     p.add_argument("--seq_batch", type=int, default=0,
                    help="estimate path only: code up to N sequences of one "
                         "geometry together in the q batch")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default; raises without a card) or 'cpu'")
     args = p.parse_args(argv)
-    for name, item in NOT_YET.items():
-        if getattr(args, name):
-            p.error(f"--{name} is not ported yet: ROADMAP.md item {item}")
+    if args.shard_q and (args.write_stream or not (args.q_batch or args.seq_batch)):
+        p.error("--shard_q splits the estimate path's q batch: it needs --q_batch "
+                "(or --seq_batch) and no --write_stream")
     if args.two_stage_me and args.num_me_stages < 2:
         args.num_me_stages = 2
     return args
@@ -328,13 +331,35 @@ def run_test(codec: PMCTFCodec, args, logger=print):
     return log
 
 
+def shard_block(n: int, shard):
+    """(first, end, ranks): the elements [first, end) of a batch of `n`
+    that this rank codes, and the number of ranks coding: as JAX shards
+    the batch axis, the largest rank count at or below the group's size
+    that divides n; the ranks past it code nothing."""
+    if shard is None:
+        return 0, n, 1
+    nd = shard.world
+    while nd > 1 and n % nd:
+        nd -= 1
+    if shard.rank >= nd:
+        return 0, 0, nd
+    rows = mesh.data_rows(n, shard.rank, nd)
+    return rows.start, rows.stop, nd
+
+
 @torch.no_grad()
-def run_test_qbatch(codec: PMCTFCodec, seq_args, q_list, logger=print):
+def run_test_qbatch(codec: PMCTFCodec, seq_args, q_list, logger=print, shard=None):
     """The estimate path for sequences x q indexes as one batch: element
     e = s * Q + qi codes sequence s at q_list[qi]. seq_args: the
     per-sequence dicts of run_test, of one geometry. Returns one
     {q_idx: log} a sequence, as run_test would give them one by one,
-    reading and coding every sequence once."""
+    reading and coding every sequence once.
+
+    shard (a parallel.DataMesh of a group): this rank codes its block of
+    the elements (shard_block) and rank 0 gathers every element's
+    metrics; rank 0 returns the logs, the other ranks None. The gather of
+    host floats is the only collective, so the group may be gloo on any
+    device, and ranks may share a card."""
     dev = codec.device
     args = seq_args[0]
     n_seq, n_q = len(seq_args), len(q_list)
@@ -344,7 +369,14 @@ def run_test_qbatch(codec: PMCTFCodec, seq_args, q_list, logger=print):
              other["frame_num"]) != (args["src_height"], args["src_width"],
                                      args["gop_size"], args["frame_num"])):
             raise ValueError("seq_batch groups must share their geometry")
-    q_vec = [q for _ in range(n_seq) for q in q_list]
+    first, end, nd = shard_block(n, shard)
+    if shard is not None and shard.rank == 0:
+        if nd > 1:
+            logger(f"q_batch sharded: {n_seq} seqs x {n_q} rate points over {nd} ranks")
+        else:
+            logger(f"q_batch not sharded: {n} elements do not divide over more than "
+                   f"one of {shard.world} ranks; rank 0 codes them as --q_batch")
+    q_vec = [q for _ in range(n_seq) for q in q_list][first:end]
     frame_num_eval = args["frame_num"]
     gop_size = args["gop_size"]
     sched = gop_schedule(gop_size)
@@ -370,15 +402,15 @@ def run_test_qbatch(codec: PMCTFCodec, seq_args, q_list, logger=print):
                                      start_index=start).read_one_frame)
 
     frame_types = [None] * frame_num
-    per_sq = [{q: {k: [0.0] * frame_num
-                   for k in ("psnrs", "rgb", "msssim", "bits", "bpp_mv")}
-               for q in q_list} for _ in range(n_seq)]
+    # this rank's elements' metrics, by element
+    per_e = {e: {k: [0.0] * frame_num for k in ("psnrs", "rgb", "msssim", "bits", "bpp_mv")}
+             for e in range(first, end)}
     frame_pixel_num = height * width
     pads = get_padding_size(height, width, p=PSIZE)
     pl, pr, pt, pb = pads
     me_stages = codec.model.num_me_stages
     start_time = time.time()
-    for gop_idx in range(gop_num):
+    for gop_idx in range(gop_num if end > first else 0):
         frames, frames_orig, mvs = [None] * gop_size, [None] * gop_size, [None] * gop_size
         for i in range(gop_size):
             ys, cbs, crs = zip(*(read() for read in readers))
@@ -386,10 +418,10 @@ def run_test_qbatch(codec: PMCTFCodec, seq_args, q_list, logger=print):
             chroma = torch.from_numpy(np.stack([np.stack(cbs), np.stack(crs)], 1)
                                       .astype(np.float32)).to(dev)[:, :, None]
             frames_orig[i] = (y, chroma)   # (S, 1, 1, H, W), (S, 2, 1, h, w)
-            # each sequence repeated once a rate point
-            frames[i] = (F.pad(y, (pl, pr, pt, pb)).repeat_interleave(n_q, 0),
+            # each sequence repeated once a rate point; this rank's block
+            frames[i] = (F.pad(y, (pl, pr, pt, pb)).repeat_interleave(n_q, 0)[first:end],
                          F.pad(chroma, (pl // 2, pr // 2, pt // 2, pb // 2))
-                         .repeat_interleave(n_q, 0))
+                         .repeat_interleave(n_q, 0)[first:end])
 
         cur_stage, dpb = -1, None
         for stage, fi, step, code_lt in sched:
@@ -404,13 +436,13 @@ def run_test_qbatch(codec: PMCTFCodec, seq_args, q_list, logger=print):
             frames[fi + step] = (result["H_t"], result["H_tc"])
             mvs[fi + step] = result["mv_hat"]
             frame_types[frame_idx + step] = 1
-            for e in range(n):
-                st = per_sq[e // n_q][q_list[e % n_q]]
-                st["bits"][frame_idx + step] = (float(result["bit_H"][e])
-                                                + float(result["bit_ME"][e]))
-                st["bpp_mv"][frame_idx + step] = float(result["bit_ME"][e]) / frame_pixel_num
+            for e, st in per_e.items():
+                st["bits"][frame_idx + step] = (float(result["bit_H"][e - first])
+                                                + float(result["bit_ME"][e - first]))
+                st["bpp_mv"][frame_idx + step] = (float(result["bit_ME"][e - first])
+                                                  / frame_pixel_num)
                 if code_lt:
-                    st["bits"][frame_idx] = float(result["bit_L"][e])
+                    st["bits"][frame_idx] = float(result["bit_L"][e - first])
             if code_lt:
                 frame_types[frame_idx] = 0
 
@@ -427,20 +459,24 @@ def run_test_qbatch(codec: PMCTFCodec, seq_args, q_list, logger=print):
             frame_idx = gop_idx * gop_size + i
             y_org, c_org = frames_orig[i]
             do_ms = y_org.shape[3] > 160 and y_org.shape[4] > 160
-            for e in range(n):
-                st = per_sq[e // n_q][q_list[e % n_q]]
+            for e, st in per_e.items():
                 st["psnrs"][frame_idx], st["rgb"][frame_idx], st["msssim"][frame_idx] = \
-                    frame_metrics(frames[i][0][e], frames[i][1][e],
+                    frame_metrics(frames[i][0][e - first], frames[i][1][e - first],
                                   y_org[e // n_q], c_org[e // n_q], pads, do_ms)
 
+    if shard is not None and shard.world > 1:
+        gathered = mesh.gather_to_rank0(per_e)
+        if gathered is None:
+            return None
+        per_e = {e: st for part in gathered for e, st in part.items()}
     test_time = time.time() - start_time
     pad = frame_num - frame_num_eval
     ft = frame_types[pad:] if pad > 0 else frame_types
     logs = []
     for s in range(n_seq):
         logs.append({})
-        for q in q_list:
-            st = {k: v[pad:] for k, v in per_sq[s][q].items()}
+        for qi, q in enumerate(q_list):
+            st = {k: v[pad:] for k, v in per_e[s * n_q + qi].items()}
             logs[s][q] = generate_log_json(
                 frame_num_eval, ft, st["bits"], st["bpp_mv"], st["psnrs"],
                 st["rgb"], st["msssim"], frame_pixel_num, test_time / n)
@@ -461,10 +497,39 @@ def q_indexes(args):
 
 
 def main(argv):
-    begin = time.time()
     args = parse_args(argv)
+    if not args.shard_q:
+        return run(args)
+    if mesh.launched_by_torchrun():
+        mesh.init_process_group(args.device, backend="gloo")
+        try:
+            return shard_rank(args)
+        finally:
+            torch.distributed.destroy_process_group()
+    ranks = torch.cuda.device_count() if args.device.startswith("cuda") else 1
+    if ranks > 1:
+        # the gather of host floats is the one collective: gloo
+        mesh.spawn(shard_rank, ranks, (args,), device=args.device, backend="gloo")
+        return None
+    return run(args, mesh.DataMesh(0, 1, torch.device(args.device)))
+
+
+def shard_rank(args):
+    """One rank of --shard_q in a joined group, on its card (ranks beyond
+    the cards share them) or the CPU."""
+    shard = mesh.make_mesh(device=args.device, share=True)
+    args.device = str(shard.device)
+    return run(args, shard)
+
+
+def run(args, shard=None):
+    """The sweep of q indexes over the configured sequences; with `shard`
+    (--shard_q) rank 0 alone prints and writes."""
+    begin = time.time()
+    lead = shard is None or shard.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     q_list = q_indexes(args)
-    print(f"Testing q_index list: {q_list}")
+    say(f"Testing q_index list: {q_list}")
 
     with build_codec(args) as codec:
         if args.synthetic:
@@ -525,17 +590,17 @@ def main(argv):
                         "vid_path": os.path.join(root_path, ds["base_path"],
                                                  seq_name + ".yuv"),
                     }
-                    if args.write_stream:
+                    if args.write_stream and lead:
                         bin_folder = os.path.join(args.stream_path, seq_name,
                                                   f"q{q_idx}")
                         create_folder(bin_folder, True)
                         cur["bin_folder"] = bin_folder
-                    if args.save_decoded_frame:
+                    if args.save_decoded_frame and lead:
                         dec_folder = os.path.join(args.decoded_frame_path,
                                                   seq_name, f"q{q_idx}")
                         create_folder(dec_folder, True)
                         cur["decoded_frame_folder"] = dec_folder
-                    print(f"CODING {seq_name} q_index={q_idx}")
+                    say(f"CODING {seq_name} q_index={q_idx}")
                     if use_qbatch:
                         key = (ds_name, seq_name)
                         if key not in qbatch_cache:
@@ -546,20 +611,26 @@ def main(argv):
                                         and geom(sq) == geom(seq)):
                                     members.append((nm, sq))
                             if len(members) > 1:
-                                print(f"seq_batch: coding {len(members)} sequences "
+                                say(f"seq_batch: coding {len(members)} sequences "
                                       f"together: {[m[0] for m in members]}")
                             curs = [dict(cur, vid_path=os.path.join(
                                 root_path, ds["base_path"], nm + ".yuv"),
                                 frame_num_seq=sq["frames"]) for nm, sq in members]
-                            logs = run_test_qbatch(codec, curs, q_list)
-                            for (nm, _), lg in zip(members, logs):
-                                qbatch_cache[(ds_name, nm)] = lg
+                            logs = run_test_qbatch(codec, curs, q_list, say, shard)
+                            for i, (nm, _) in enumerate(members):
+                                qbatch_cache[(ds_name, nm)] = logs and logs[i]
+                        if not lead:
+                            continue
                         res = qbatch_cache[key][q_idx]
+                    elif not lead:  # nothing batched to share out
+                        continue
                     else:
                         res = run_test(codec, cur)
                     res["ds_name"] = ds_name
                     res["video_path"] = seq_name
                     log_result[ds_name][seq_name] = res
+                if not lead:
+                    continue
 
                 ave = {k: [] for k in (
                     "test_time", "ave_p_frame_bpp", "ave_p_frame_psnr",
@@ -580,6 +651,8 @@ def main(argv):
                 res_summary["ms-ssim-rgb"].append(avg["ave_all_frame_msssim"])
                 res_summary["quality"].append(str(q_idx))
 
+            if not lead:
+                continue
             out_path = args.output_path.replace(".json", f"_qidx{q_idx}.json")
             out_dir = os.path.dirname(out_path)
             if out_dir:
@@ -588,9 +661,10 @@ def main(argv):
                 dump_json(log_result, fp, float_digits=6, indent=2)
             print(f"wrote {out_path}")
 
-    with open(args.output_path.replace(".json", "_summary.json"), "w") as fp:
-        dump_json(res_summary, fp, float_digits=6, indent=2)
-    print(f"Total elapsed time: {(time.time() - begin) / 60:.1f} min")
+    if lead:
+        with open(args.output_path.replace(".json", "_summary.json"), "w") as fp:
+            dump_json(res_summary, fp, float_digits=6, indent=2)
+    say(f"Total elapsed time: {(time.time() - begin) / 60:.1f} min")
 
 
 if __name__ == "__main__":

@@ -11,6 +11,20 @@ with per-pair recomputation (training/steps.py).
 
     python -m learned_pmctf_tpu_torch.cli.train_pmctf -d <vimeo root> \\
         --config configs/train_mctf_gop16.json
+
+Data parallelism (--data_parallel N, the JAX trainer's flag: 0 means
+every visible card when there is more than one): N ranks, one a card
+over NCCL (gloo ranks on the CPU with --device cpu), each coding its
+B/N rows of every global batch of the same seeded loader, with the
+gradients averaged over the ranks before the optimizer step
+(training/steps.py). The trainer starts the ranks itself, or joins the
+group of a launcher:
+
+    torchrun --nproc_per_node 4 -m learned_pmctf_tpu_torch.cli.train_pmctf \\
+        -d <vimeo root> --data_parallel 4
+
+Rank 0 alone writes the log and the checkpoints; the logged metrics are
+the means over the ranks.
 """
 
 from __future__ import annotations
@@ -22,15 +36,10 @@ import os.path as osp
 import sys
 import time
 
+import logging
+
 import numpy as np
 import torch
-
-# options of the JAX trainer that the port does not have yet, and the
-# ROADMAP.md item that brings each
-NOT_YET = {
-    "data_parallel": "A.14 (multi-device)",
-}
-
 
 def parse_args(argv):
     p = argparse.ArgumentParser(description="pMCTF-L training (PyTorch)")
@@ -67,14 +76,25 @@ def parse_args(argv):
     p.add_argument("--log_every", type=int, default=100,
                    help="log train metrics every N global steps")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="not ported yet beyond one device (ROADMAP.md A.14)")
+                   help="split each batch over this many ranks, one a card "
+                        "(0 = every visible card if more than one, else one "
+                        "process); with --device cpu, gloo ranks on the CPU")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
-    args = p.parse_args(argv)
-    if args.data_parallel > 1:
-        p.error(f"--data_parallel is not ported yet: ROADMAP.md item "
-                f"{NOT_YET['data_parallel']}")
-    return args
+    return p.parse_args(argv)
+
+
+def data_parallel_ranks(args) -> int:
+    """The number of ranks --data_parallel asks for on args.device (1: no
+    group). Never more than the visible cards."""
+    visible = 1
+    if args.device.startswith("cuda"):
+        visible = torch.cuda.device_count()
+    n = args.data_parallel or (visible if visible > 1 else 1)
+    if args.device.startswith("cuda") and n > visible:
+        raise ValueError(f"--data_parallel {n} asks for more ranks than the "
+                         f"{visible} visible cards")
+    return n
 
 
 def resume_point(cfg, args, meta):
@@ -93,12 +113,38 @@ def resume_point(cfg, args, meta):
 
 def main(argv):
     args = parse_args(argv)
+    from ..parallel import mesh
+    if mesh.launched_by_torchrun():
+        world = int(os.environ["WORLD_SIZE"])
+        if args.data_parallel not in (0, world):
+            raise ValueError(f"--data_parallel {args.data_parallel} under a "
+                             f"launcher of {world} ranks")
+        mesh.init_process_group(args.device)
+        try:
+            train(args, grouped=True)
+        finally:
+            torch.distributed.destroy_process_group()
+        return
+    if args.device.startswith("cuda"):
+        from ..runtime import resolve_device
+        resolve_device(args.device)
+    n = data_parallel_ranks(args)
+    if n > 1:
+        mesh.data_rows(args.batch_size, 0, n)  # the batch must divide, as JAX asserts
+        mesh.spawn(train, n, (args, True), device=args.device)
+    else:
+        train(args, grouped=False)
 
+
+def train(args, grouped: bool):
+    """The curriculum on this process: one rank of the joined group if
+    `grouped`, else the whole batch."""
     from ..convert import load_reference_spynet
     from ..data.loader import DataLoader
     from ..data.vimeo import VideoYCbCr
     from ..models.pmctf import build_pmctf
     from ..models.pwave import QP_NUM
+    from ..parallel import mesh
     from ..runtime import resolve_device
     from ..training.curriculum import (
         CurriculumConfig, PART_PREDICATES, clone_me_stage, load_from_iframe)
@@ -108,15 +154,28 @@ def main(argv):
     from ..utils.logger import get_env_info, get_root_logger
     from ..utils.schedules import get_cur_lambda
 
-    device = resolve_device(args.device)
+    if grouped:
+        dp = mesh.make_mesh(device=args.device)
+        group = torch.distributed.group.WORLD
+    else:
+        dp = mesh.DataMesh(0, 1, resolve_device(args.device))
+        group = None
+    device, lead = dp.device, dp.rank == 0
+    rows = mesh.data_rows(args.batch_size, dp.rank, dp.world)
     cfg = CurriculumConfig.from_json(args.config)
     rng = np.random.default_rng(args.seed)
 
     exp_path = osp.join("experiments", f"pmctf_BS{args.batch_size}{args.exp_postfix}")
-    os.makedirs(exp_path, exist_ok=True)
-    logger = get_root_logger(
-        log_file=osp.join(exp_path, f"train_{time.strftime('%Y%m%d_%H%M%S')}.log"))
-    logger.info(get_env_info())
+    if lead:
+        os.makedirs(exp_path, exist_ok=True)
+        logger = get_root_logger(
+            log_file=osp.join(exp_path, f"train_{time.strftime('%Y%m%d_%H%M%S')}.log"))
+        logger.info(get_env_info())
+        if group is not None:
+            logger.info(f"data parallel: {dp.world} ranks of {rows.stop - rows.start} "
+                        f"rows ({torch.distributed.get_backend()})")
+    else:  # the other ranks write nothing
+        logger = get_root_logger(f"pmctf_torch_rank{dp.rank}", log_level=logging.WARNING)
 
     # build_pmctf turns TF32 off: the trainer is f32, as the JAX one
     model = build_pmctf(device, seed=args.seed, lossy=not args.lossless,
@@ -177,13 +236,17 @@ def main(argv):
             if start_idx > copy_idx >= 0:
                 logger.info(f"cloning ME stage {copy_idx} -> {start_idx}+")
                 clone_me_stage(model, start_idx, copy_idx, args.num_me_stages)
+        if group is not None:
+            # every rank built, loaded and cloned alike; rank 0's weights
+            # make sure of it
+            mesh.broadcast_from_rank0_(list(model.parameters()) + list(model.buffers()))
         mask = trainable_mask(model, PART_PREDICATES[part])
         optimizer = make_optimizer(model, cfg.lr[stage_num], weight_decay=0.0,
                                    clip_norm=5.0, trainable=mask)
         gates = StageGates.for_stage(stage_num)
         # one step per me_base (the frame-interval-dependent ME-stage offset)
         step_fn = {mb: make_pmctf_train_step(model, optimizer, num_frames,
-                                             gates, me_base=mb)
+                                             gates, me_base=mb, group=group)
                    for mb in range(args.num_me_stages)}
         logger.info(f"STAGE {stage_num+1}: part={part} frames={num_frames} "
                     f"lr={cfg.lr[stage_num]} gates={gates}")
@@ -218,8 +281,9 @@ def main(argv):
             if it >= steps:
                 break
             global_step += 1
-            # frames arrive as a tuple of (B,3,ph,pw); train on Y only
-            frames = torch.stack([torch.from_numpy(f[:, 0:1]) for f in batch]
+            # frames arrive as a tuple of (B,3,ph,pw); train on Y only,
+            # this rank's rows
+            frames = torch.stack([torch.from_numpy(f[rows, 0:1]) for f in batch]
                                  ).to(device)
             q_index = args.fix_q if args.fix_q >= 0 \
                 else int(rng.integers(0, QP_NUM))
@@ -242,11 +306,12 @@ def main(argv):
                 current_interval = dataset.set_current_interval()
 
         epochs_cur_stage += 1
-        save_checkpoint(osp.join(exp_path, f"state_epoch{epoch}"),
-                        model, optimizer, epoch,
-                        {"stage_num": stage_num,
-                         "quant_stage": quant_stage_enabled})
-        logger.info(f"epoch {epoch} done in {time.time()-t0:.0f}s; saved")
+        if lead:
+            save_checkpoint(osp.join(exp_path, f"state_epoch{epoch}"),
+                            model, optimizer, epoch,
+                            {"stage_num": stage_num,
+                             "quant_stage": quant_stage_enabled})
+            logger.info(f"epoch {epoch} done in {time.time()-t0:.0f}s; saved")
 
 
 if __name__ == "__main__":

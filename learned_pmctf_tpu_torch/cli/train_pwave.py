@@ -5,9 +5,10 @@ PyTorch (the same flags, defaults, logs and checkpoints), on CUDA unless
 Variable-rate training with a random q_index per step (lambda
 log-interpolated from [1, 35] * 0.003), AdamW with a cosine learning-rate
 schedule and warm-up, gradient clipping, validation at the highest rate
-point and best-loss checkpointing. The JAX trainer also draws each
-epoch's first validation picture (utils/visualizer.py); the port does
-not draw pictures yet, and has no flag for it.
+point and best-loss checkpointing. Each epoch's first validation
+picture, its subbands and its reconstruction go to <exp>/web/images/
+with an index.html gallery (utils/visualizer.py), as the JAX trainer
+draws them.
 
     python -m learned_pmctf_tpu_torch.cli.train_pwave -d <vimeo root>
 """
@@ -67,6 +68,7 @@ def main(argv):
     from ..utils.checkpoint import load_checkpoint, save_checkpoint
     from ..utils.logger import get_env_info, get_root_logger
     from ..utils.schedules import cosine_scheduler, get_cur_lambda
+    from ..utils.visualizer import Visualizer, pwave_visuals
 
     device = resolve_device(args.device)
     disable_tf32()
@@ -79,6 +81,7 @@ def main(argv):
     logger = get_root_logger(
         log_file=osp.join(exp_path, f"train_{time.strftime('%Y%m%d_%H%M%S')}.log"))
     logger.info(get_env_info())
+    visualizer = Visualizer(exp_path)
 
     train_ds = VideoFolder(args.dataset, split="train",
                            patch_size=tuple(args.patch_size), seed=seed)
@@ -139,11 +142,16 @@ def main(argv):
         q_index = QP_NUM - 1
         lmbda = get_cur_lambda(LAMBDA_LIST, q_index, QP_NUM)
         with torch.no_grad():
-            for batch in valid_loader:
-                out = model(torch.from_numpy(batch).to(device), float(q_index))
+            for i, batch in enumerate(valid_loader):
+                x = torch.from_numpy(batch).to(device)
+                out = model(x, float(q_index))
                 n, _, h, w = batch.shape
                 bpp = float(out["bits"].sum()) / (n * h * w)
                 val_losses.append(lmbda * float(out["mse"]) + bpp)
+                if i == 0:
+                    visualizer.display_current_results(
+                        pwave_visuals(model, x[:1], out["x_hat"][:1]), epoch,
+                        is_eval=True)
         loss = float(np.mean(val_losses)) if val_losses else float("inf")
         logger.info(f"epoch {epoch} valid loss {loss:.4f} "
                     f"({time.time() - t0:.0f}s)")

@@ -168,6 +168,13 @@ class _Bridge:
               else self.fourstep)
         ll(f"{j}/context_fusion_ll", f"{t}.context_fusion.{levels - 1}.ll")
 
+    def spynet(self, j, t, module=None):
+        lvl = 0
+        while self.has(f"{j}/basic_{lvl}/conv1/kernel"):
+            for k in range(1, 6):
+                self.conv(f"{j}/basic_{lvl}/conv{k}", f"{t}.moduleBasic.{lvl}.conv{k}")
+            lvl += 1
+
     def pmctf(self):
         self.pwave("lp_coder", "lp_coder")
         self.pwave("hp_coder", "hp_coder")
@@ -175,12 +182,7 @@ class _Bridge:
         for name in ("hp_q_scale", "mv_y_q_scale_enc", "mv_y_q_scale_dec"):
             for i in range(stages):
                 self.leaf(name, f"{name}.{i}", index=i)
-        lvl = 0
-        while self.has(f"optic_flow/basic_{lvl}/conv1/kernel"):
-            for k in range(1, 6):
-                self.conv(f"optic_flow/basic_{lvl}/conv{k}",
-                          f"optic_flow.moduleBasic.{lvl}.conv{k}")
-            lvl += 1
+        self.spynet("optic_flow", "optic_flow")
         for i in range(stages):
             e, te = f"mv_encoder_{i}", f"mv_encoder.{i}"
             self.rbws(f"{e}/enc_1/layers_0", f"{te}.enc_1.0")
@@ -305,7 +307,8 @@ def pwave_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 
 # port module class -> its map
-_MODULE_KINDS = {"PostProcessCtx": "postprocess_ctx",
+_MODULE_KINDS = {"MESpynet": "spynet",
+                 "PostProcessCtx": "postprocess_ctx",
                  "DynamicDWConv": "dynamic_dw",
                  "MaskedDynamicDWConv": "dynamic_dw",
                  "ConditionalConv": "conditional_conv",
@@ -313,10 +316,10 @@ _MODULE_KINDS = {"PostProcessCtx": "postprocess_ctx",
 
 
 def module_params_from_jax(module, tree: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX params of PostProcessCtx, DynamicDWConv, MaskedDynamicDWConv,
-    ConditionalConv or Conv3d -> the state dict of the port's `module`
-    of the same class (its mask buffers made by the port). The port's
-    CompressionModel has no parameters."""
+    """JAX params of MESpynet (either mode), PostProcessCtx,
+    DynamicDWConv, MaskedDynamicDWConv, ConditionalConv or Conv3d -> the
+    state dict of the port's `module` of the same class (its mask buffers
+    made by the port). The port's CompressionModel has no parameters."""
     kind = _MODULE_KINDS[type(module).__name__]
     return _bridged(tree, kind, module).out
 
@@ -397,8 +400,10 @@ def load_reference_spynet(path_or_dict, spynet):
     ``load_spynet_torch(luma_mode=True)`` converts one: a "state_dict" or
     "net" entry unwrapped, "module." stripped, the sniklaus names
     ``moduleBasic.{L}.moduleBasic.{2j}.*`` mapped to ``conv{j+1}``, keys
-    outside ``moduleBasic.{L}.conv{j}.*`` dropped, and an 8-input conv1's
-    RGB slices summed to the port's 4 luma inputs. Loads strictly.
+    outside ``moduleBasic.{L}.conv{j}.*`` dropped, and, for a luma-mode
+    `spynet`, an 8-input conv1's RGB slices summed to its 4 luma inputs
+    (an RGB `spynet`, ``luma_mode=False``, takes them as they are, as
+    ``load_spynet_torch(luma_mode=False)`` does). Loads strictly.
     Returns `spynet`."""
     sd = path_or_dict
     if not isinstance(sd, Mapping):
@@ -417,7 +422,8 @@ def load_reference_spynet(path_or_dict, spynet):
         if len(parts) != 4 or parts[0] != "moduleBasic":
             continue
         w = torch.as_tensor(v).detach().cpu().float()
-        if parts[2] == "conv1" and parts[3] == "weight" and w.shape[1] == 8:
+        if (parts[2] == "conv1" and parts[3] == "weight" and w.shape[1] == 8
+                and spynet.luma_mode):
             w = torch.cat([w[:, 0:3].sum(1, keepdim=True),
                            w[:, 3:6].sum(1, keepdim=True), w[:, 6:8]], dim=1)
         out[k] = w

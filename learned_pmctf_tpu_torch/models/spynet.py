@@ -1,11 +1,14 @@
-"""SpyNet coarse-to-fine optical flow, luma mode.
+"""SpyNet coarse-to-fine optical flow.
 
-Counterpart of learned_pmctf_tpu/models/spynet.py with luma_mode=True:
-the net runs on 1-channel planes, so conv1 takes 4 inputs (current,
+Counterpart of learned_pmctf_tpu/models/spynet.py. The codec's net runs
+in luma mode (the default here; JAX's PMCTF builds it with
+luma_mode=True): 1-channel planes, so conv1 takes 4 inputs (current,
 warped reference, 2 flow channels), the reference's RGB slices summed.
-``fast_warp`` warps inside the pyramid with the separable
-``flow_warp_fast``, clamped to +-``fast_warp_disp`` (PMCTF wires both to
-its ``warp_mode`` and ``warp_max_disp``).
+``luma_mode=False`` is the RGB net (conv1 takes 8 inputs) that the
+dataset's flow filter runs (cli/average_flow.py). ``fast_warp`` warps
+inside the pyramid with the separable ``flow_warp_fast``, clamped to
++-``fast_warp_disp`` (PMCTF wires both to its ``warp_mode`` and
+``warp_max_disp``).
 """
 
 import torch
@@ -18,7 +21,8 @@ from .layers import Conv2d, net_boundary
 
 
 class MEBasic(nn.Module):
-    """One pyramid level's flow refiner: 4 -> 32 -> 64 -> 32 -> 16 -> 2, 7x7."""
+    """One pyramid level's flow refiner: in_ch (4 luma, 8 RGB) -> 32 -> 64
+    -> 32 -> 16 -> 2, 7x7."""
 
     def __init__(self, in_ch: int = 4):
         super().__init__()
@@ -37,15 +41,18 @@ class MEBasic(nn.Module):
 
 
 class MESpynet(nn.Module):
-    """Pyramid flow from im1 (current) to im2 (reference), both (B,1,H,W)."""
+    """Pyramid flow from im1 (current) to im2 (reference), both (B,1,H,W),
+    or (B,3,H,W) RGB without luma_mode."""
 
     def __init__(self, levels: int = 6, fast_warp: bool = False,
-                 fast_warp_disp: int = 32):
+                 fast_warp_disp: int = 32, luma_mode: bool = True):
         super().__init__()
         self.levels = levels
         self.fast_warp = fast_warp
         self.fast_warp_disp = fast_warp_disp
-        self.moduleBasic = nn.ModuleList(MEBasic(4) for _ in range(levels))
+        self.luma_mode = luma_mode
+        in_ch = 4 if luma_mode else 8
+        self.moduleBasic = nn.ModuleList(MEBasic(in_ch) for _ in range(levels))
 
     def _warp(self, im, flow):
         if self.fast_warp:

@@ -13,6 +13,16 @@ the place of ``lax.scan`` and ``vmap``.
 The MV rate terms' uniform noise is drawn before each checkpointed pair
 and passed in as tensors: a draw inside the pair would draw again on
 recompute, and the gradient would not belong to the forward pass.
+
+Data parallelism (``group``): each rank codes its block of the global
+batch's rows, draws the noise at the global batch's shape and keeps its
+rows, and the gradients are averaged over the ranks as one flat bucket
+between ``backward`` and the optimizer (which clips the reduced
+gradients by their global norm, where JAX clips). Every term of the loss
+is a mean over the batch, so W ranks of B/W rows give the update one
+process gives on B rows, as JAX's sharded step does. No DDP wrapper: the
+loss never calls ``model.forward``, and a stage's gates leave whole
+sub-nets without gradients.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..models.pmctf import empty_dpb
+from ..parallel.mesh import data_rows, mean_over_ranks_
 
 
 class StageGates(NamedTuple):
@@ -63,13 +74,17 @@ def make_pwave_train_step(model, optimizer):
     return step
 
 
-def draw_pair_noise(model, frames, generator):
+def draw_pair_noise(model, frames, generator, rank: int = 0, world: int = 1):
     """The MV rate terms' noise of every analysis pair of a GOP, in the
     order pmctf_gop_loss codes the pairs: a list of (n_y, n_z), uniform in
-    [-0.5, 0.5), drawn from `generator` on its device."""
+    [-0.5, 0.5), drawn from `generator` on its device. With `world` ranks
+    the frames are `rank`'s rows of the global batch: the noise is drawn
+    at the global batch's shape and the rank's rows kept, so every rank
+    draws alike and one process on the global batch draws the same."""
     b, _, h, w = frames[0].shape
-    shapes = model.mv_noise_shapes(b, h, w)
-    return [tuple(torch.rand(s, generator=generator, device=generator.device) - 0.5
+    shapes = model.mv_noise_shapes(b * world, h, w)
+    rows = data_rows(b * world, rank, world)
+    return [tuple((torch.rand(s, generator=generator, device=generator.device) - 0.5)[rows]
                   for s in shapes)
             for _ in range(len(frames) - 1)]
 
@@ -177,19 +192,45 @@ def pmctf_gop_loss(model, frames, q_index, lmbda, gates: StageGates,
 
 def make_pmctf_train_step(model, optimizer, num_frames: int,
                           gates: StageGates, me_base: int = 0,
-                          remat: bool = True):
+                          remat: bool = True, group=None):
     """step(frames, q_index, lmbda, noise=None) -> log: one GOP forward,
     backward and optimizer update of `model` (a PMCTF) in place. frames:
-    (num_frames, B, 1, H, W)."""
+    (num_frames, B, 1, H, W). group: a torch.distributed group (or
+    torch.distributed.group.WORLD) whose ranks each pass their rows of
+    the global batch and the same generator; the gradients and the log
+    are then the means over the ranks."""
+    rank, world = 0, 1
+    if group is not None:
+        import torch.distributed as dist
+        rank, world = dist.get_rank(group), dist.get_world_size(group)
 
     def step(frames, q_index, lmbda, noise: Optional[object] = None):
         if len(frames) != num_frames:
             raise ValueError(f"expected {num_frames} frames, got {len(frames)}")
+        if isinstance(noise, torch.Generator):
+            noise = draw_pair_noise(model, list(frames), noise, rank, world)
         optimizer.zero_grad()
         loss, log = pmctf_gop_loss(model, frames, q_index, lmbda, gates,
                                    me_base, noise, remat)
         loss.backward()
+        if group is not None:
+            reduce_over_ranks(optimizer.params, log, group)
         optimizer.step()
         return log
 
     return step
+
+
+def reduce_over_ranks(params, log, group):
+    """Average the gradients of `params` (zeros where a step reached none,
+    as the optimizer's step would give them) and the entries of `log` over
+    the group's ranks, in place."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    keys = sorted(log)
+    vals = torch.stack([torch.as_tensor(log[k], dtype=torch.float32,
+                                        device=params[0].device) for k in keys])
+    mean_over_ranks_([p.grad for p in params] + [vals], group)
+    for k, v in zip(keys, vals):
+        log[k] = v

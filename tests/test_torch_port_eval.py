@@ -191,10 +191,3 @@ def test_cli_lossless_matches_jax_cli(tmp_path, monkeypatch, stream):
     extra = ["--q_index", "10", "--lossless"] + (["--write_stream", "1"] if stream else [])
     codec, port = _run_both(tmp_path, monkeypatch, extra, [10], stream=stream)
     assert not codec.model.lossy and not codec.model.hp_coder.lossy
-
-
-@pytest.mark.parametrize("flag", [["--shard_q"]])
-def test_cli_refuses_what_is_not_ported(flag, capsys):
-    with pytest.raises(SystemExit):
-        flex.parse_args(SMALL_ARGS + flag)
-    assert "ROADMAP.md item" in capsys.readouterr().err

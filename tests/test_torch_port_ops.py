@@ -88,14 +88,46 @@ def _imported_modules(path):
             yield node.module
 
 
+FORBIDDEN = ("jax", "jaxlib", "flax", "learned_pmctf_tpu")
+
+
+def _jax_imports(files):
+    """(file, module) of every import of JAX, flax or the JAX package,
+    at module level or inside a function."""
+    return [(f, mod) for f in files for mod in _imported_modules(f)
+            if mod.split(".")[0] in FORBIDDEN]
+
+
 def test_port_imports_nothing_of_jax():
     files = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]
     assert len(files) > 10
-    for f in files:
-        for mod in _imported_modules(f):
-            root = mod.split(".")[0]
-            assert root not in ("jax", "jaxlib", "flax", "learned_pmctf_tpu"), (
-                f, mod)
+    scanned = {f.relative_to(PORT).as_posix() for f in files if PORT in f.parents}
+    assert {"parallel/__init__.py", "parallel/mesh.py", "utils/bdrate.py",
+            "utils/visualizer.py", "cli/average_flow.py"} <= scanned
+    assert not _jax_imports(files)
+
+
+def test_import_scan_catches_a_planted_jax_import(tmp_path):
+    """The scan above on a copy of the package: clean as it is, and each
+    import planted into a copied module (at its top, or inside a
+    function) is reported."""
+    import shutil
+    copy = tmp_path / "pkg"
+    shutil.copytree(PORT, copy, ignore=shutil.ignore_patterns("build", "csrc", "__pycache__"))
+    assert not _jax_imports(sorted(copy.rglob("*.py")))
+    plants = {"parallel/mesh.py": ("import jax\n", "jax"),
+              "utils/bdrate.py": ("from learned_pmctf_tpu.utils import bdrate\n",
+                                  "learned_pmctf_tpu.utils"),
+              "utils/visualizer.py": ("\n\ndef _planted():\n    import flax.linen as nn\n",
+                                      "flax.linen"),
+              "cli/average_flow.py": ("import jax.numpy as jnp\n", "jax.numpy")}
+    for rel, (line, _) in plants.items():
+        f = copy / rel
+        text = f.read_text()
+        f.write_text(text + line if line.startswith("\n") else line + text)
+    found = {(f.relative_to(copy).as_posix(), mod)
+             for f, mod in _jax_imports(sorted(copy.rglob("*.py")))}
+    assert found == {(rel, mod) for rel, (_, mod) in plants.items()}
 
 
 def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
@@ -117,9 +149,15 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
     with PMCTFCodec(model, device="cpu") as codec:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             stream_gop(codec, [], [], 10, "unused")
-    from learned_pmctf_tpu_torch.cli import flex
+    from learned_pmctf_tpu_torch.cli import average_flow, flex, train_pmctf
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         flex.main(["--synthetic", "4", "--synthetic_size", "64x64"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        flex.main(["--synthetic", "4", "--q_index_num", "2", "--q_batch", "--shard_q"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_pmctf.main(["-d", "unused", "--data_parallel", "2"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        average_flow.main(["--data", "unused"])
 
 
 MAX_TESTS_A_FILE = 8

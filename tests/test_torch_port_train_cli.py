@@ -1,7 +1,7 @@
 """The training CLIs (cli/train_pmctf.py, cli/train_pwave.py) on the
 CPU: one step or two of each on a temporary PNG dataset, at full width
-(the trainers have no width flags), their refusals, and the resume
-arithmetic; --lossless in both (the lossless modules are held against
+(the trainers have no width flags), the pWave trainer's validation
+pictures, and the resume arithmetic; --lossless in both (the lossless modules are held against
 JAX in tests/test_torch_port_lossless.py, the YCoCg frames in
 tests/test_torch_port_data.py).
 """
@@ -13,7 +13,6 @@ import subprocess
 import sys
 
 import numpy as np
-import pytest
 
 from learned_pmctf_tpu_torch.training import curriculum
 from test_torch_port_data import write_vimeo_pngs
@@ -36,15 +35,6 @@ def _losses(text, key):
     vals = [float(v) for v in re.findall(rf"{key} (\S+)", text)]
     assert vals and all(np.isfinite(vals)), text[-2000:]
     return vals
-
-
-@pytest.mark.parametrize("module,flags", [
-    ("learned_pmctf_tpu_torch.cli.train_pmctf", ["--data_parallel", "2"])])
-def test_train_cli_refuses_what_is_not_ported(module, flags):
-    import importlib
-    cli = importlib.import_module(module)
-    with pytest.raises(SystemExit):
-        cli.parse_args(["-d", "x", *flags])
 
 
 def test_resume_point_follows_the_curriculum():
@@ -94,6 +84,12 @@ def test_train_clis_on_the_cpu(tmp_path):
     ck = tmp_path / "pw" / "pwave_BS1_LR0.0001" / "checkpoint_best_loss"
     assert json.loads((ck / "meta.json").read_text())["epoch"] == 0
     assert "valid loss" in pw.stdout
+    # the epoch's first validation picture, as the JAX trainer draws it
+    web = tmp_path / "pw" / "pwave_BS1_LR0.0001" / "web"
+    assert sorted(p.name for p in (web / "images").iterdir()) == [
+        f"epoch000_eval_{k}.png" for k in ("lvl0_subbands", "lvl1_subbands", "lvl2_subbands",
+                                           "lvl3_subbands", "x", "x_hat")]
+    assert "<h3>epoch 0 [eval]</h3>" in (web / "index.html").read_text()
 
 
 def test_train_pmctf_cli_lossless(tmp_path):

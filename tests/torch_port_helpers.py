@@ -90,9 +90,9 @@ def small_shapes(**config):
         method=JaxPMCTF.full_init_graph))
 
 
-def jax_small_params(seed=0):
-    """{"params": tree} of numpy arrays for jax_small_model()."""
-    shapes = small_shapes()
+def jax_small_params(seed=0, **config):
+    """{"params": tree} of numpy arrays for jax_small_model(**config)."""
+    shapes = small_shapes(**config)
     g = np.random.default_rng(seed)
     return jax.tree_util.tree_map_with_path(
         lambda p, s: _draw(tuple(str(k.key) for k in p), s.shape, g)
