@@ -59,7 +59,7 @@ exits non-zero:
    with the LL fronts, the device-to-host copies and the seconds in the
    AR decoder counted;
 12. cli: the eval CLI (learned_pmctf_tpu_torch.cli.flex) in its own
-   process on a synthetic 1080p GOP-4 at two q indexes, AR, with
+   process on a synthetic 1080p GOP-4 at one q index (20), AR, with
    streams: exit code, its JSON files' keys, finite metrics, bits > 0.
 
 13. train_kernel_grad: Conv3x3Function (the kernel forward, the kernel
@@ -155,21 +155,35 @@ trainer's default, cli/train_pmctf.py); its profile is the exact warp's.
    (--data_parallel 1). NCCL across two cards is not shown on a one-card
    machine;
 28. shard_q: the eval CLI's --q_batch --shard_q at full width, a
-   synthetic 720p GOP-4 at 4 rate points, on 2 gloo ranks sharing the
-   card (each rank the CLI's own rank entry, 2 rate points, 120 conv3x3
+   synthetic 720p GOP-4 at 2 rate points, on 2 gloo ranks sharing the
+   card (each rank the CLI's own rank entry, 1 rate point, 120 conv3x3
    launches counted) against --q_batch in its own process: the JSONs key
    for key, rates rel 1e-5, PSNR 1e-4 dB, both wall times;
 29. average_flow: the dataset's flow filter (cli/average_flow.py, the
-   RGB SpyNet) on a synthetic 256x448 PNG tree on the card and with
-   --device cpu: mean |flow| within 1e-4 a clip.
-Phases 21-29 run after phase 20. Within the script's time, phases 8 and
+   RGB SpyNet) on a synthetic 256x448 PNG tree (2 clips) on the card
+   and with --device cpu: mean |flow| within 1e-4 a clip;
+30. spatial_small_reference: the full stage of
+   tests/test_torch_port_spatial_models.py (the JAX test's config, Q = 4
+   at q 0, 7, 14, 20, 64x128) width-sharded (parallel/halo.py) on a
+   2 x 2 (data x spatial) mesh of 4 gloo ranks sharing the card against
+   one process on the card: bits rtol 1e-5 and atol 1e-4, planes 1e-3
+   (the CPU test's tolerances), every rank the single process's conv3x3
+   launches by variant;
+31. spatial: full-width pMCTF-L (f32, exact warp, four-step LL) at
+   padded 1080p, one stage at Q = 2 (estimate_one_stage_multi, then
+   inverse_mctf_multi) on a 1 x 2 mesh of 2 gloo ranks sharing the card,
+   960 columns each, against one process: the same checks; each rank's
+   stage ms beside the single process's, its exchanges, their bytes and
+   share of its wall time, its peak memory and its launches by variant
+   (on planes widened by PostProcess's 16-column halo).
+Phases 21-31 run after phase 20. Within the script's time, phases 8 and
 11 time one encode+decode run (phase 11 profiles its encode+decode GOP
-only), phase 11 two estimate GOPs, phase 15 two GOP-4 steps (one with
-the fast warp), one round of the weight-gradient A/B and its counted
-GOP-16 step, and phase 16 two pWave steps.
+only), phase 11 one estimate GOP, phase 15 two GOP-4 steps (one with the fast warp), one
+round of the weight-gradient A/B and its counted GOP-16 step, phase 16
+two pWave steps and phase 27 one step after the first.
 
 ``python3 chip_smoke.py --only lossless,q_batch`` runs phases 1-2 and the
-named phases of 21-29 alone (names as their JSON lines give them).
+named phases of 21-31 alone (names as their JSON lines give them).
 ``python3 chip_smoke.py --kernels`` runs phases 1-3 and 18 alone, and
 ``python3 chip_smoke.py --kernels --ab DIR`` then times the variants of
 both kernel phases' main-path shapes and of the training 1->64 input
@@ -186,8 +200,8 @@ bf16 ones, ``stream_launches`` the stream GOP-4, ``ar_launches`` and
 a GOP-4 train step, ``bench_launches`` the bench configuration's GOP-4,
 ``lossless_launches`` the lossless GOPs (none), ``q_batch_launches``
 the q-batched GOP-4, ``dp_train_launches`` rank 0's data-parallel GOP-4
-train step and ``shard_q_launches`` rank 0's half of the sharded q
-batch;
+train step, ``shard_q_launches`` rank 0's half of the sharded q batch
+and ``spatial_launches`` rank 0's half of the width-sharded stage;
 each path launches exactly its variants: the f32 paths the f32 ones, the
 bench the bf16 ones, and every launch of a direct variant on a path runs
 its C = 1 kernel, as the C layer counts them) and, last, {"ok": true,
@@ -1242,7 +1256,7 @@ def phase_ar_slice(smi):
     h, w = LUMA
     model = unit_gain_ar(build_pmctf("cuda", seed=0, num_me_stages=4, ll_mode="ar"))
     luma, chroma = synthetic_gop(GOP, h, w, "cuda")
-    out, est = timed_code_gop(model, luma, chroma, runs=2)
+    out, est = timed_code_gop(model, luma, chroma, runs=1)
     stream, stream_by_variant = stream_runs(model, luma, chroma, out["bits"],
                                             ll_mode="ar")
     emit({"phase": "ar_slice", "estimate": est, "stream": stream, "card": smi})
@@ -1271,11 +1285,11 @@ CLI_SUMMARY_KEYS = {"bpp", "psnr-rgb", "psnr-yuv", "quality", "ms-ssim-rgb", "bp
 
 def phase_cli(smi):
     """The eval CLI as a user runs it, in its own process: a synthetic
-    1080p GOP-4 at two q indexes, AR LL, written to streams and decoded."""
+    1080p GOP-4 at q index 20, AR LL, written to streams and decoded."""
     with tempfile.TemporaryDirectory() as d:
         cmd = [sys.executable, "-m", "learned_pmctf_tpu_torch.cli.flex",
                "--synthetic", "4", "--synthetic_size", "1080x1920",
-               "--force_intra_period", "4", "--q_index_num", "2",
+               "--force_intra_period", "4", "--q_index_num", "1",
                "--num_me_stages", "4", "--ll_mode", "ar", "--write_stream", "1",
                "--output_path", os.path.join(d, "out.json"),
                "--stream_path", os.path.join(d, "bin")]
@@ -1287,7 +1301,7 @@ def phase_cli(smi):
             raise AssertionError(f"cli exited {proc.returncode}:\n{proc.stdout[-3000:]}"
                                  f"\n{proc.stderr[-3000:]}")
         logs = {}
-        for q in (0, 20):
+        for q in (20,):
             with open(os.path.join(d, f"out_qidx{q}.json")) as f:
                 res = json.load(f)["synthetic_ds"]
             log = res["synthetic"]
@@ -1306,7 +1320,7 @@ def phase_cli(smi):
                                            "avg_p_decoding_time_ms", "test_time")}
         with open(os.path.join(d, "out_summary.json")) as f:
             summary = json.load(f)
-        if set(summary) != CLI_SUMMARY_KEYS or summary["quality"] != ["0", "20"]:
+        if set(summary) != CLI_SUMMARY_KEYS or summary["quality"] != ["20"]:
             raise AssertionError(f"cli summary {summary}")
     emit({"phase": "cli", "command": " ".join(cmd[1:]), "wall_s": wall_s,
           "logs": logs, "summary": summary, "card": smi})
@@ -2645,10 +2659,10 @@ def phase_data_parallel(smi):
     """Phase 26 and the full-width check with one spawn of the ranks: at
     the trainer's defaults, 2 gloo ranks of 4 rows on the card against one
     process on the batch of 8 (loss, gradients and parameters after the
-    step; each rank's step ms over 2 steps after the first, peak memory
+    step; each rank's step ms over 1 step after the first, peak memory
     and conv3x3 launches). Phase 17 runs the trainer CLI over NCCL (one
     rank); NCCL across two cards needs a machine with two."""
-    res = run_dp({"small": 0, "full": 2})
+    res = run_dp({"small": 0, "full": 1})
     emit_dp_small_reference(*res["small"])
     single, ranks, agree = res["full"]
     expect = train_launch_expect(4, TRAIN_PATCH[1])
@@ -2718,13 +2732,13 @@ def _json_gap(got, want, where=""):
 
 
 def phase_shard_q(smi):
-    """cli.flex --q_batch --shard_q at full width, a synthetic GOP-4 at 4
-    rate points, on 2 gloo ranks sharing the card (each codes 2 rate
-    points, its launches counted) against cli.flex --q_batch in its own
+    """cli.flex --q_batch --shard_q at full width, a synthetic GOP-4 at 2
+    rate points, on 2 gloo ranks sharing the card (each codes 1 rate
+    point, its launches counted) against cli.flex --q_batch in its own
     process: the JSONs key for key, rates rel 1e-5, PSNR 1e-4 dB."""
     from learned_pmctf_tpu_torch.parallel import mesh
     args = ["--synthetic", "4", "--synthetic_size", SHARD_Q_SIZE, "--force_intra_period",
-            "4", "--q_index_num", "4", "--num_me_stages", "4", "--q_batch"]
+            "4", "--q_index_num", "2", "--num_me_stages", "4", "--q_batch"]
     with tempfile.TemporaryDirectory() as d:
         _, batch_s = run_cli("learned_pmctf_tpu_torch.cli.flex",
                              args + ["--output_path", os.path.join(d, "batch", "out.json")],
@@ -2740,7 +2754,7 @@ def phase_shard_q(smi):
                 launches.append(json.load(f))
         batch, shard = _flex_jsons(os.path.join(d, "batch")), _flex_jsons(os.path.join(d, "shard"))
     rate_gap, psnr_gap = _json_gap(shard, batch)
-    if len(batch) != 5 or rate_gap > 1e-5 or psnr_gap > 1e-4:
+    if len(batch) != 3 or rate_gap > 1e-5 or psnr_gap > 1e-4:
         raise AssertionError(f"shard_q: {sorted(batch)}, rates {rate_gap}, PSNR {psnr_gap} dB")
     if any(sum(v.values()) != 15 * 2 * GOP for v in launches):
         raise AssertionError(f"shard_q: conv3x3 launches a rank {launches}")
@@ -2761,7 +2775,7 @@ def phase_average_flow(smi):
     same clips, each mean |flow| within FLOW_ABS."""
     stats, walls = {}, {}
     with tempfile.TemporaryDirectory() as d:
-        write_png_dataset(os.path.join(d, "vimeo"), sequences=4, frames=8, h=256, w=448)
+        write_png_dataset(os.path.join(d, "vimeo"), sequences=2, frames=8, h=256, w=448)
         for dev in ("cuda", "cpu"):
             out = os.path.join(d, f"{dev}.json")
             _, walls[dev] = run_cli("learned_pmctf_tpu_torch.cli.average_flow",
@@ -2770,11 +2784,231 @@ def phase_average_flow(smi):
             with open(out) as f:
                 stats[dev] = json.load(f)
     gap = max(abs(stats["cuda"][k] - v) for k, v in stats["cpu"].items())
-    if list(stats["cuda"]) != list(stats["cpu"]) or len(stats["cpu"]) != 4 or gap > FLOW_ABS:
+    if list(stats["cuda"]) != list(stats["cpu"]) or len(stats["cpu"]) != 2 or gap > FLOW_ABS:
         raise AssertionError(f"average_flow: card {stats['cuda']} against CPU {stats['cpu']}")
     emit({"phase": "average_flow", "clips": len(stats["cpu"]), "size": [256, 448],
           "mean_abs_flow": stats["cuda"], "max_abs_diff_card_vs_cpu": gap, "tol": FLOW_ABS,
           "card_wall_s": walls["cuda"], "cpu_wall_s": walls["cpu"], "card": smi})
+
+
+# tests/test_torch_port_spatial_models.py's full stage (the JAX test's
+# config) and tolerances: bits rtol 1e-5 and atol 1e-4, planes 1e-3
+SPATIAL_SMALL = dict(decomp_levels=2, num_me_stages=1, channel_mv=8, channel_n=8,
+                     features=8, ar_features=8, spynet_levels=3)
+SPATIAL_BITS_RTOL, SPATIAL_BITS_ATOL, SPATIAL_PLANE_ATOL = 1e-5, 1e-4, 1e-3
+# config: (ranks, spatial axis, rate points)
+SPATIAL_MESHES = {"small": (4, 2, (0, 7, 14, 20)), "full": (2, 2, (0, 20))}
+
+
+def spatial_setup(config):
+    """(model, ref, cur, q indexes) on the card: "small", the CPU test's
+    stage (its biases drawn, 64x128 frames of the JAX test's draw), or
+    "full", full-width pMCTF-L at padded 1080p (its rate points spread as
+    phase 23's) on frames 0 and 1 of phase 5's synthetic GOP; ref and cur
+    (y, chroma) with a leading axis of the rate points."""
+    import numpy as np
+    from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
+    qs = SPATIAL_MESHES[config][2]
+    if config == "small":
+        model = build_pmctf("cuda", seed=1, **SPATIAL_SMALL)
+        g = torch.Generator().manual_seed(4)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("bias"):
+                    p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+        rng = np.random.default_rng(7)
+        y0, y1 = (rng.integers(0, 256, (1, 1, 64, 128)) for _ in range(2))
+        c0, c1 = (rng.integers(0, 256, (2, 1, 32, 64)) for _ in range(2))
+        frames = [(torch.from_numpy(y.astype(np.float32)).cuda(),
+                   torch.from_numpy(c.astype(np.float32)).cuda()) for y, c in ((y0, c0), (y1, c1))]
+    else:
+        model = build_pmctf("cuda", seed=0, num_me_stages=4)
+        with torch.no_grad():
+            for coder in (model.lp_coder, model.hp_coder):
+                for qp in (coder.QP, coder.QP_ll):
+                    qp.copy_(torch.tensor([0.02, 0.5]).reshape(2, 1, 1, 1))
+        luma, chroma = synthetic_gop(2, *LUMA, "cuda")
+        frames = list(zip(luma, chroma))
+
+    def tile(t):
+        return t[None].expand(len(qs), *t.shape).contiguous()
+    ref, cur = ((tile(y), tile(c)) for y, c in frames)
+    return model, ref, cur, qs
+
+
+def spatial_stage(model, ref, cur, qs, warm):
+    """One stage as the q-batched path codes it (estimate_one_stage_multi,
+    then inverse_mctf_multi of luma and chroma), on the process's planes;
+    with `warm` a warm-up first; the run's ms, its conv3x3 launches,
+    exchanges and peak memory. Planes and bits to the host."""
+    from learned_pmctf_tpu_torch.codec.video_codec import PMCTFCodec
+    from learned_pmctf_tpu_torch.models.pmctf import empty_dpb
+    from learned_pmctf_tpu_torch.parallel import halo
+
+    def run():
+        res = codec.estimate_one_stage_multi(ref, cur, True, empty_dpb(), list(qs))
+        y = codec.inverse_mctf_multi(res["L_t"], res["H_t"], res["mv_hat"])
+        c = codec.inverse_mctf_multi(res["L_tc"], res["H_tc"], res["mv_hat"], downscale=True)
+        torch.cuda.synchronize()
+        return {**{k: torch.as_tensor(res[k]).cpu() for k in
+                   ("L_t", "H_t", "L_tc", "H_tc", "bit_L", "bit_H", "bit_ME")},
+                "inv_ref": y[0].cpu(), "inv_cur": y[1].cpu(), "inv_ref_c": c[0].cpu(),
+                "inv_cur_c": c[1].cpu()}
+
+    with PMCTFCodec(model) as codec:
+        if warm:
+            run()
+        count_from_zero()
+        halo.counters(reset=True)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = run()
+        stage_ms = (time.perf_counter() - t) * 1e3
+    return {"planes": out, "stage_ms": stage_ms, "by_variant": counted("spatial stage"),
+            "exchanges": halo.counters(), "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _spatial_rank(config, out_dir):
+    """One rank of a (data x spatial) mesh sharing the card over gloo: its
+    rate points and its columns of the stage."""
+    from learned_pmctf_tpu_torch.parallel import halo, mesh
+    ranks, spatial, _ = SPATIAL_MESHES[config]
+    grid = mesh.make_mesh(spatial=spatial, device="cuda", share=True)
+    model, ref, cur, qs = spatial_setup(config)
+    rows = mesh.data_rows(len(qs), grid.data_index, grid.data_size)
+    w = ref[0].shape[-1]
+    cols = (mesh.frame_columns(w, grid.spatial_index, spatial, model.spatial_align()),
+            mesh.frame_columns(w // 2, grid.spatial_index, spatial))
+
+    def block(planes):
+        return tuple(t[rows][..., c].contiguous() for t, c in zip(planes, cols))
+    with halo.spatial_shard(grid):
+        out = spatial_stage(model, block(ref), block(cur), qs[rows], config == "full")
+    out["grid"] = (grid.data_index, grid.data_size, grid.spatial_index, spatial)
+    out["columns"] = w // spatial
+    torch.save(out, os.path.join(out_dir, f"{config}{grid.rank}.pt"))
+
+
+def spatial_compare(single, ranks, what):
+    """The ranks' blocks against the single process: the largest relative
+    bits gap and the largest plane difference; raises outside
+    tolerance."""
+    spatial = ranks[0]["grid"][3]
+    grid = [ranks[i:i + spatial] for i in range(0, len(ranks), spatial)]
+    bits_gap = plane_gap = 0.0
+    for k, want in single["planes"].items():
+        if k.startswith("bit"):
+            for row in grid:
+                if any(not torch.equal(r["planes"][k], row[0]["planes"][k]) for r in row):
+                    raise AssertionError(f"{what}: the ranks of a row disagree on {k}")
+            got = torch.cat([row[0]["planes"][k].reshape(-1) for row in grid]).double()
+            want = want.reshape(-1).double()
+            bad = (got - want).abs() > SPATIAL_BITS_ATOL + SPATIAL_BITS_RTOL * want.abs()
+            bits_gap = max(bits_gap, float(((got - want).abs() / want.abs().clamp(min=1.0))
+                                           .max()))
+        else:
+            got = torch.cat([torch.cat([r["planes"][k] for r in row], dim=-1)
+                             for row in grid])
+            gap = float((got - want).abs().max())
+            plane_gap = max(plane_gap, gap)
+            bad = torch.tensor([gap > SPATIAL_PLANE_ATOL])
+        if bool(bad.any()):
+            raise AssertionError(f"{what}: {k} against one process, bits {bits_gap}, "
+                                 f"planes {plane_gap}")
+    for r in ranks:
+        if r["by_variant"] != single["by_variant"]:
+            raise AssertionError(f"{what}: a rank launched {r['by_variant']}, one process "
+                                 f"{single['by_variant']}")
+    return bits_gap, plane_gap
+
+
+def run_spatial(config):
+    """The stage on one process, then on the config's mesh of gloo ranks
+    sharing the card (mesh.spawn; a failing rank raises here); (single,
+    ranks' results, bits gap, planes gap)."""
+    from learned_pmctf_tpu_torch.parallel import mesh
+    model, ref, cur, qs = spatial_setup(config)
+    # the script's process: its kernels built and its full-width convs
+    # run by the earlier phases, so no warm-up (a rank is a new process)
+    single = spatial_stage(model, ref, cur, qs, False)
+    del model, ref, cur
+    torch.cuda.empty_cache()
+    n = SPATIAL_MESHES[config][0]
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        mesh.spawn(_spatial_rank, n, (config, d), device="cuda", backend="gloo")
+        spawn_s = time.perf_counter() - t
+        ranks = [torch.load(os.path.join(d, f"{config}{r}.pt")) for r in range(n)]
+    return (single, ranks, *spatial_compare(single, ranks, f"spatial {config}"), spawn_s)
+
+
+def spatial_halos():
+    from learned_pmctf_tpu_torch.models import context, mv_coder, pmctf, postprocess, wavelet
+    return {"lifting_step_rows": wavelet.PU_RADIUS, "lifting_step_columns": wavelet.PU_RADIUS + 1,
+            "temporal_filter": wavelet.PU_RADIUS, "lstm_step": context.LSTM_RADIUS,
+            "hier_prior": context.HIER_RADIUS, "prior_pass": context.PASS_RADIUS,
+            "ar_net": context.AR_RADIUS,
+            "postprocess": postprocess.HALO,
+            "mv_encoder_full_res": pmctf.MV_ENC_HALO, "mv_prior_at_1/64": pmctf.MV_PRIOR_HALO,
+            "mv_prior_pass_at_1/16": mv_coder.PASS_RADIUS, "mv_decoder_at_1/16":
+                pmctf.MV_DEC_HALO, "chroma_mv_downsample": pmctf.MV_DOWN_HALO,
+            "spynet_and_exact_warp": "gathered at full width"}
+
+
+def phase_spatial_small_reference(smi):
+    """The CPU test's full stage (tests/test_torch_port_spatial_models.py:
+    Q = 4 at 64x128) on a 2 x 2 (data x spatial) mesh of 4 gloo ranks
+    sharing the card against one process on the card: bits rtol 1e-5 and
+    atol 1e-4, planes 1e-3, the same conv3x3 launches by variant."""
+    single, ranks, bits_gap, plane_gap, spawn_s = run_spatial("small")
+    emit({"phase": "spatial_small_reference", "config": SPATIAL_SMALL,
+          "q_indexes": list(SPATIAL_MESHES["small"][2]), "luma": [64, 128],
+          "mesh": "2 x 2 (data x spatial)", "ranks": 4, "backend": "gloo, four ranks on one card",
+          "tol": {"bits_rtol": SPATIAL_BITS_RTOL, "bits_atol": SPATIAL_BITS_ATOL,
+                  "planes_atol": SPATIAL_PLANE_ATOL},
+          "bits_max_rel_diff": bits_gap, "planes_max_abs_diff": plane_gap,
+          "exchanges_a_rank": [r["exchanges"]["exchanges"] for r in ranks],
+          "conv3x3_launches_by_variant_a_rank": ranks[0]["by_variant"],
+          "ranks_wall_s": spawn_s, "card": smi})
+
+
+def phase_spatial(smi):
+    """Full-width pMCTF-L (f32, exact warp, four-step LL) at padded 1080p:
+    one stage at Q = 2 (estimate_one_stage_multi, inverse_mctf_multi) on
+    a 1 x 2 (data x spatial) mesh of 2 gloo ranks sharing the card, each
+    coding 960 of the 1920 columns, against one process: bits rel 1e-5,
+    planes 1e-3; each rank's stage ms (after a warm-up) beside the single
+    process's (its first call at Q = 2), its exchanges, their bytes and their share of its wall
+    time, its peak memory, and its conv3x3 launches by variant (the
+    single process's variants and counts on the widened planes)."""
+    single, ranks, bits_gap, plane_gap, spawn_s = run_spatial("full")
+    h, w = LUMA
+    emit({"phase": "spatial", "model": "pMCTF-L full width (seeded random weights), f32, "
+                                       "exact warp, four-step LL",
+          "luma": [len(SPATIAL_MESHES["full"][2]), 1, h, w],
+          "chroma": [len(SPATIAL_MESHES["full"][2]), 2, h // 2, w // 2],
+          "q_indexes": list(SPATIAL_MESHES["full"][2]), "mesh": "1 x 2 (data x spatial)",
+          "ranks": 2, "columns_a_rank": ranks[0]["columns"],
+          "backend": "gloo, two ranks on one card (CUDA tensors through host copies)",
+          "halos": spatial_halos(),
+          "tol": {"bits_rtol": SPATIAL_BITS_RTOL, "planes_atol": SPATIAL_PLANE_ATOL},
+          "bits_max_rel_diff": bits_gap, "planes_max_abs_diff": plane_gap,
+          "single_stage_ms": single["stage_ms"], "single_warm_up": False,
+          "rank_stage_ms": [r["stage_ms"] for r in ranks],
+          "exchanges_a_stage": [r["exchanges"]["exchanges"] for r in ranks],
+          "exchange_bytes_a_stage": [r["exchanges"]["bytes"] for r in ranks],
+          "exchange_s_a_stage": [r["exchanges"]["seconds"] for r in ranks],
+          "exchange_share_of_rank_wall": [r["exchanges"]["seconds"] * 1e3 / r["stage_ms"]
+                                          for r in ranks],
+          "single_peak_mem_bytes": single["peak_mem_bytes"],
+          "rank_peak_mem_bytes": [r["peak_mem_bytes"] for r in ranks],
+          "single_conv3x3_launches_by_variant": single["by_variant"],
+          "conv3x3_launches_by_variant_a_rank": [r["by_variant"] for r in ranks],
+          "ranks_wall_s": spawn_s,
+          "note": "two ranks share one card and its host: the arithmetic of spatial "
+                  "sharding, not its scaling; NCCL across cards is not shown",
+          "card": smi})
+    return ranks[0]["by_variant"]
 
 
 def kernel_entries(rows, rows_bf16, launches):
@@ -2827,14 +3061,16 @@ def check_paths(launches):
             raise AssertionError(f"{path} launched {by_variant}, expected {sorted(want)}")
 
 
-# phases 21-29 by name, for ``--only``
+# phases 21-31 by name, for ``--only``
 NEW_PHASES = {"lossless_small_reference": lambda smi: phase_lossless_small_reference(),
               "lossless": phase_lossless, "q_batch": phase_q_batch,
               "ca_cli": phase_ca_cli, "extra_modules": phase_extra_modules,
               "data_parallel_small_reference":
                   lambda smi: phase_data_parallel_small_reference(),
               "data_parallel": phase_data_parallel, "shard_q": phase_shard_q,
-              "average_flow": phase_average_flow}
+              "average_flow": phase_average_flow,
+              "spatial_small_reference": phase_spatial_small_reference,
+              "spatial": phase_spatial}
 
 
 def main(argv):
@@ -2875,12 +3111,15 @@ def main(argv):
     dp_by_variant = phase_data_parallel(smi)  # phases 26 and 27
     shard_q_by_variant = phase_shard_q(smi)
     phase_average_flow(smi)
+    phase_spatial_small_reference(smi)
+    spatial_by_variant = phase_spatial(smi)
     # launches by path: the estimate GOP-4 ("launches"), the stream GOP-4,
     # both again with the AR LL coder, a GOP-4 train step (forward,
     # recompute and input gradients), the bench configuration's GOP-4,
     # the lossless estimate and stream GOP-4s (none), the q-batched
     # GOP-4 (four rate points), rank 0's data-parallel GOP-4 train step
-    # (4 rows) and rank 0's half of the sharded q batch (2 rate points)
+    # (4 rows), rank 0's half of the sharded q batch (2 rate points) and
+    # rank 0's half of the width-sharded stage (960 columns, Q = 2)
     launches = {"launches": by_variant, "stream_launches": stream_by_variant,
                 "ar_launches": ar_by_variant,
                 "ar_stream_launches": ar_stream_by_variant,
@@ -2889,7 +3128,8 @@ def main(argv):
                 "lossless_launches": lossless_by_variant,
                 "q_batch_launches": q_batch_by_variant,
                 "dp_train_launches": dp_by_variant,
-                "shard_q_launches": shard_q_by_variant}
+                "shard_q_launches": shard_q_by_variant,
+                "spatial_launches": spatial_by_variant}
     check_paths(launches)
     entries = kernel_entries(rows, rows_bf16, launches)
     on_path = [e for e in entries if e["launches"] > 0]

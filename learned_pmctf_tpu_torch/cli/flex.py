@@ -13,7 +13,9 @@ or --seq_batch the estimate path codes every rate point, and up to
 JAX CLI writes it). Runs on CUDA unless --device cpu. --shard_q (with
 --q_batch) splits the batch's elements over ranks: each codes its
 contiguous block of sequence x rate-point elements, and rank 0 gathers
-their metrics and writes the JSON the unsharded --q_batch writes.
+their metrics and writes the JSON the unsharded --q_batch writes. Off
+the batched path (--write_stream, or no q batch) the shard is unused, as
+in the JAX CLI: rank 0 codes and says so.
 
     python -m learned_pmctf_tpu_torch.cli.flex --model_path ckpt.pth \\
         --test_config configs/dataset_config.json --force_intra_period 16 \\
@@ -111,16 +113,14 @@ def parse_args(argv):
                    default=False,
                    help="with --q_batch: split the batch's elements over "
                         "ranks (one a visible card, or those of a torchrun "
-                        "launcher), each coding its own rate points")
+                        "launcher), each coding its own rate points; "
+                        "unused (rank 0 codes) off the batched path")
     p.add_argument("--seq_batch", type=int, default=0,
                    help="estimate path only: code up to N sequences of one "
                         "geometry together in the q batch")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default; raises without a card) or 'cpu'")
     args = p.parse_args(argv)
-    if args.shard_q and (args.write_stream or not (args.q_batch or args.seq_batch)):
-        p.error("--shard_q splits the estimate path's q batch: it needs --q_batch "
-                "(or --seq_batch) and no --write_stream")
     if args.two_stage_me and args.num_me_stages < 2:
         args.num_me_stages = 2
     return args
@@ -554,6 +554,10 @@ def run(args, shard=None):
 
         use_qbatch = not args.write_stream and (
             (args.q_batch and len(q_list) > 1) or args.seq_batch > 0)
+        if shard is not None and not use_qbatch:
+            why = ("--write_stream codes one rate point at a time" if args.write_stream
+                   else "no q batch (--q_batch with more than one q index, or --seq_batch)")
+            say(f"shard_q unused: {why}; rank 0 codes as without --shard_q")
         qbatch_cache = {}
 
         def geom(seq):

@@ -337,8 +337,15 @@ class PMCTFCodec:
     def __enter__(self):
         return self
 
-    def __exit__(self, *exc):
-        self.close()
+    def __exit__(self, exc_type, exc, tb):
+        """close(); its RuntimeError about undrained decodes only when the
+        block ended without an exception, which would otherwise be
+        replaced by it."""
+        try:
+            self.close()
+        except RuntimeError:
+            if exc_type is None:
+                raise
         return False
 
     @torch.no_grad()

@@ -5,6 +5,15 @@ context (``SubbandContext``), the masked-conv AR model of the LL subband
 under ``ll_mode="ar"`` (``ContextFusionSubband``, without the context
 branch, which no model builds) and the four-step checkerboard prior
 (``ContextFusionFourStep``).
+
+Under a spatial shard (parallel/halo.py) the LSTM exchanges its halo once
+a step (three chained 3x3 gates, and the upsamplers' 3x3 conv at twice
+the resolution: LSTM_RADIUS), the four-step prior once for its
+hierarchical part (HIER_RADIUS) and once a pass (PASS_RADIUS), since each
+pass reads what the passes before it decoded, and the AR net once
+(AR_RADIUS). The checkerboard masks are built from a shard's own shape:
+its first column must be even, which check_columns asserts rather than
+shifting the masks.
 """
 
 from __future__ import annotations
@@ -17,8 +26,17 @@ import torch.nn as nn
 from ..ops.masks import checkerboard_masks
 from ..ops.quant import quant_ste, ste_round
 from ..ops.resample import nearest_upsample
+from ..parallel import halo
 from .layers import (Conv2d, ContextResidual, DepthConvBlock, MaskedConv2d,
                      leaky_relu, net_boundary)
+
+# columns each sub-network reaches (3x3 convs, one column each)
+LSTM_RADIUS = 3       # LSTM1-3, chained; +1 (at the low resolution) to upsample
+HIER_RADIUS = 8       # the lower subband's conv (2 columns here), conv1_context,
+#                       two residual blocks, the DepthConv head; even: the lower
+#                       subband is at half the resolution
+PASS_RADIUS = 7       # a spatial prior: conv, residual block, two residual blocks
+AR_RADIUS = 6         # the masked convs: conv1, two residual blocks, conv2
 
 
 class LSTM2D(nn.Module):
@@ -85,6 +103,14 @@ class SubbandContext(nn.Module):
         """Feed one reconstructed subband; with `upsample_level` i, grow
         the states with the i-th upsamplers (after 'hh' of level i+1).
         Returns (context, new_states)."""
+        (h1, c1), (h2, c2), (h3, c3) = states
+        return halo.halo_call(
+            lambda *t: self._step(t[0], ((t[1], t[2]), (t[3], t[4]), (t[5], t[6])),
+                                  upsample_level),
+            subband, h1, c1, h2, c2, h3, c3,
+            r=LSTM_RADIUS + (upsample_level is not None))
+
+    def _step(self, subband, states, upsample_level):
         (h1, c1), (h2, c2), (h3, c3) = states
         h1, c1 = self.LSTM1(subband, h1, c1)
         h2, c2 = self.LSTM2(h1, h2, c2)
@@ -220,8 +246,10 @@ class ContextFusionFourStep(nn.Module):
     def forward(self, x, context=None, prev_subband=None,
                 training: bool = False):
         """Returns (x_res, x_q, x_hat, scales_hat), summed over the passes."""
-        ctx_feat, scales, means = self.hier_params(context, prev_subband, like=x)
+        ctx_feat, scales, means = halo.halo_call(self.hier_params, context, prev_subband,
+                                                 x, r=HIER_RADIUS)
         _, _, h, w = x.shape
+        halo.check_columns(x, 2, "the checkerboard masks' parity")
         masks = checkerboard_masks(h, w, x.dtype, x.device)
         x_res = x_q = s_hat = None
         x_hat_so_far = torch.zeros_like(x)
@@ -233,5 +261,7 @@ class ContextFusionFourStep(nn.Module):
             s_hat = s if s_hat is None else s_hat + s
             x_hat_so_far = x_hat_so_far + xh
             if step < 3:
-                scales, means = self.spatial_params(x_hat_so_far, ctx_feat, step)
+                scales, means = halo.halo_call(
+                    lambda a, f: self.spatial_params(a, f, step), x_hat_so_far, ctx_feat,
+                    r=PASS_RADIUS)
         return x_res, x_q, x_hat_so_far, s_hat

@@ -3,6 +3,12 @@
 Counterpart of learned_pmctf_tpu/models/mv_coder.py: the estimate path's
 ``four_part_prior_forward`` and the bitstream path's per-pass
 ``four_part_prior_decode_scales`` / ``four_part_prior_scatter``.
+
+Under a spatial shard (parallel/halo.py) the four-part prior exchanges a
+halo a pass (its spatial prior's three DepthConv blocks: PASS_RADIUS
+columns of the latent), and its checkerboard needs an even first column
+at 1/16. The encoder, hyper and decoder chains' radii and alignments are
+models/pmctf.py's.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ import torch.nn as nn
 
 from ..ops.masks import checkerboard_masks
 from ..ops.quant import lower_bound, quant_ste
+from ..parallel import halo
 from .layers import (Conv2d, DepthConvBlock, DepthConvBlock4, LeakyReLU,
                      ResidualBlockUpsample, ResidualBlockWithStride, SubpelConv,
                      net_boundary)
@@ -86,6 +93,10 @@ class HyperDecoder(nn.Sequential):
         return net_boundary(super().forward(x))
 
 
+# columns of the MV latent a pass of the four-part prior reaches: three
+# DepthConv blocks (a depthwise 3x3 each) after the 1x1 adaptor
+PASS_RADIUS = 3
+
 # mask index per (step, channel quarter)
 MASK_SCHEDULE = ((0, 1, 2, 3), (3, 2, 1, 0), (2, 3, 0, 1), (1, 0, 3, 2))
 
@@ -116,6 +127,7 @@ def four_part_prior_forward(y, common_params, adaptors: Sequence[Callable],
     Returns (y_res, y_q, y_hat, scales_hat)."""
     q_enc, q_dec, scales, means = separate_prior_enc_dec(common_params)
     _, _, h, w = y.shape
+    halo.check_columns(y, 2, "the MV prior's checkerboard parity")
     masks = checkerboard_masks(h, w, y.dtype, y.device)
 
     y_quarters = (y * q_enc).chunk(4, dim=1)
@@ -142,9 +154,12 @@ def four_part_prior_forward(y, common_params, adaptors: Sequence[Callable],
         y_hat_so_far = (y_hat_curr if y_hat_so_far is None
                         else y_hat_so_far + y_hat_curr)
         if step < 3:
-            inp = torch.cat([y_hat_so_far, common_params], dim=1)
-            # f32 head: scales and means drive the symbol quantization
-            chunks = net_boundary(spatial_prior(adaptors[step](inp))).chunk(8, dim=1)
+            def pass_params(so_far, common, step=step):
+                inp = torch.cat([so_far, common], dim=1)
+                # f32 head: scales and means drive the symbol quantization
+                return net_boundary(spatial_prior(adaptors[step](inp)))
+            chunks = halo.halo_call(pass_params, y_hat_so_far, common_params,
+                                    r=PASS_RADIUS).chunk(8, dim=1)
             scales_q, means_q = chunks[:4], chunks[4:]
 
     return (torch.cat(res_acc, dim=1), torch.cat(q_acc, dim=1),

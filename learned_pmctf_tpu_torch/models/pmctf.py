@@ -13,9 +13,22 @@ dict. ``forward_one_stage`` is the estimate path and, with
 ``training=True``, one pair of the training step
 (training/steps.py); the ``mv_*`` methods are the sub-graphs of the
 bitstream codec (codec/video_codec.py).
+
+Under a spatial shard (parallel/halo.py) ``forward_one_stage`` codes this
+rank's block of the columns (the estimate path; ``inverse_mctf`` too):
+SpyNet runs on the planes gathered at full width, the MV encoder and its
+hyper-encoder (six stride-2 convs, down to 1/64) exchange one halo of
+MV_ENC_HALO columns aligned to 64, the hyper-decoder and the prior's
+fusion one of MV_PRIOR_HALO columns of the hyper-latent, each pass of the
+four-part prior one, the MV decoder one of MV_DEC_HALO columns of the
+latent, the chroma MVs' antialiased downsample one of MV_DOWN_HALO, and
+the warps and the pWave coders their own. The rates, pixel counts and
+squared errors are the frame's on every rank.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
@@ -25,6 +38,7 @@ from ..entropy.distributions import laplace_bits
 from ..ops.resample import bilinear_downsample, bilinear_upsample
 from ..ops.quant import add_uniform_noise, quant_ste, ste_round
 from ..ops.warp import flow_warp, flow_warp_fast
+from ..parallel import halo
 from ..runtime import disable_tf32, resolve_device
 from .layers import Conv2d, DepthConvBlock, init_params, net_boundary, policy_scope
 from .mv_coder import (HyperDecoder, HyperEncoder, MvDec, MvEnc,
@@ -34,8 +48,23 @@ from .spynet import MESpynet
 from .wavelet import TemporalLifting
 
 
+# halos of the motion sub-networks under a spatial shard, in columns of
+# their first input (the radius each reaches, rounded up to the alignment
+# its strides need; tests/test_torch_port_spatial.py checks each)
+MV_ENC_HALO = 128   # the flow at full resolution: MvEnc + HyperEncoder, to 1/64
+MV_PRIOR_HALO = 2   # the hyper-latent at 1/64: HyperDecoder + the prior's fusion
+MV_DEC_HALO = 3     # the MV latent at 1/16: MvDec, to full resolution
+MV_DOWN_HALO = 2    # luma MVs: the chroma MVs' antialiased 2x downsample (one column)
+MV_ALIGN = 64       # six stride-2 convs from the flow to the hyper-latent
+
+
 def empty_dpb():
     return {"mv_feature": None, "ref_mv_y": None}
+
+
+def _halve_mv(mv_hat):
+    """The chroma MVs: the luma MVs downsampled and halved."""
+    return halo.halo_call(bilinear_downsample, mv_hat, r=MV_DOWN_HALO, align=2) / 2.0
 
 
 class PMCTF(nn.Module):
@@ -113,6 +142,12 @@ class PMCTF(nn.Module):
     def get_qp_num() -> int:
         return PWave.get_qp_num()
 
+    def spatial_align(self) -> int:
+        """What a spatial shard's luma width must divide by: 64 for the MV
+        hyper chain, and the pWave coders' alignment on the chroma planes
+        (half the luma width)."""
+        return math.lcm(MV_ALIGN, 2 * self.hp_coder.spatial_align())
+
     def me_index(self, stage_idx: int) -> int:
         return min(self.num_me_stages - 1, stage_idx)
 
@@ -126,8 +161,11 @@ class PMCTF(nn.Module):
         return interp_q_scale(self.hp_q_scale[self.me_index(stage_idx)], q_index)
 
     def mv_prior_param_decoder(self, mv_z_hat, dpb, me_num: int):
+        return halo.halo_call(lambda z, ref: self._prior_params(z, ref, me_num),
+                              mv_z_hat, dpb.get("ref_mv_y"), r=MV_PRIOR_HALO)
+
+    def _prior_params(self, mv_z_hat, ref_mv_y, me_num: int):
         mv_params = self.mv_hyper_prior_decoder[me_num](mv_z_hat)
-        ref_mv_y = dpb.get("ref_mv_y")
         if ref_mv_y is None:
             mv_params = self.mv_y_prior_fusion_adaptor_0[me_num](mv_params)
         else:
@@ -171,11 +209,13 @@ class PMCTF(nn.Module):
             mv_z_for_bit = add_uniform_noise(mv_z, noise[1])
         else:
             mv_y_for_bit, mv_z_for_bit = mv_y_q, mv_z_hat
-        bits_mv_y = laplace_bits(mv_y_for_bit, mv_scales_hat)
-        bits_mv_z = self.mv_bit_est[me_num].get_z_bits(mv_z_for_bit)
-        pixel_num = ref_frame.shape[2] * ref_frame.shape[3]
-        bpp_mv_y = bits_mv_y.sum(dim=(1, 2, 3)) / pixel_num
-        bpp_mv_z = bits_mv_z.sum(dim=(1, 2, 3)) / pixel_num
+        bits_mv_y = laplace_bits(mv_y_for_bit, mv_scales_hat).sum(dim=(1, 2, 3))
+        bits_mv_z = self.mv_bit_est[me_num].get_z_bits(mv_z_for_bit).sum(dim=(1, 2, 3))
+        if halo.current() is not None:
+            bits_mv_y, bits_mv_z = halo.sum_over_width(torch.stack([bits_mv_y, bits_mv_z]))
+        pixel_num = ref_frame.shape[2] * halo.global_width(ref_frame)
+        bpp_mv_y = bits_mv_y / pixel_num
+        bpp_mv_z = bits_mv_z / pixel_num
         if training:
             bpp_mv_y, bpp_mv_z = bpp_mv_y.mean(), bpp_mv_z.mean()
         elif not per_sample:
@@ -201,11 +241,18 @@ class PMCTF(nn.Module):
         mv_cur = cur_y / self.dynamic_range
         mv_ref = ref_y / self.dynamic_range
         if me_downsample > 1:
+            if halo.current() is not None:
+                raise ValueError("a spatial shard codes motion at full resolution: "
+                                 "me_downsample 1")
             mv_cur = bilinear_downsample(mv_cur, me_downsample)
             mv_ref = bilinear_downsample(mv_ref, me_downsample)
         est_mv = self.optic_flow(mv_cur, mv_ref)
-        mv_y = self.mv_encoder[me_num](est_mv, dpb.get("mv_feature"), mv_y_q_enc)
-        return mv_y, self.mv_hyper_prior_encoder[me_num](mv_y)
+
+        def encode(flow, feature):
+            mv_y = self.mv_encoder[me_num](flow, feature, mv_y_q_enc)
+            return mv_y, self.mv_hyper_prior_encoder[me_num](mv_y)
+        return halo.halo_call(encode, est_mv, dpb.get("mv_feature"), r=MV_ENC_HALO,
+                              align=MV_ALIGN)
 
     # ---- sub-graphs of the bitstream codec -------------------------------
 
@@ -244,7 +291,8 @@ class PMCTF(nn.Module):
         """(mv_hat, mv_feature) from the decoded MV latent."""
         me_num = self.me_index(stage_idx)
         _, mv_y_q_dec = self.get_mv_y_q(q_index, me_num)
-        mv_hat, mv_feature = self.mv_decoder[me_num](mv_y_hat, mv_y_q_dec)
+        mv_hat, mv_feature = halo.halo_call(
+            lambda y: self.mv_decoder[me_num](y, mv_y_q_dec), mv_y_hat, r=MV_DEC_HALO)
         if me_downsample > 1:
             mv_hat = bilinear_upsample(mv_hat, me_downsample) * me_downsample
         return mv_hat, mv_feature
@@ -289,7 +337,7 @@ class PMCTF(nn.Module):
         """Inverse temporal lifting; `downscale` halves the MVs for chroma."""
         tf = self.temporal_filtering[self.me_index(stage_idx)]
         if downscale:
-            mv_hat = bilinear_downsample(mv_hat) / 2.0
+            mv_hat = _halve_mv(mv_hat)
         mv_hat = self._tile_mv(mv_hat, l_t.shape[0])
         inv_pred = self._warp(h_t, -mv_hat)
         if not self.lossy:
@@ -318,10 +366,12 @@ class PMCTF(nn.Module):
         every rate comes back per sample, shape (B,)."""
         if torch.is_tensor(q_index) and q_index.dim() == 1:
             q_index = q_index.view(-1, 1, 1, 1)  # broadcasts over (B, C, H, W)
+        halo.check_columns(ref_frame, self.spatial_align() // (1 if mv_hat is None else 2),
+                           "a pMCTF stage")
         if mv_hat is not None:
             bpp_mv_y = bpp_mv_z = None
             ref_mv = {"mv_feature": None, "mv_y_hat": None}
-            mv_hat = bilinear_downsample(mv_hat) / 2.0
+            mv_hat = _halve_mv(mv_hat)
         else:
             mv_hat, ref_mv, bpp_mv_y, bpp_mv_z = self.compute_and_code_motion(
                 ref_frame, cur_frame, q_index, dpb, stage_idx, me_downsample,
@@ -333,14 +383,14 @@ class PMCTF(nn.Module):
                               qp_scale=self.hp_qp_scale(q_index, stage_idx),
                               training=training)
         has_mv_bits = bpp_mv_y is not None
-        pixels = ref_frame.shape[2] * ref_frame.shape[3]
+        pixels = ref_frame.shape[2] * halo.global_width(ref_frame)
         bit_h = res_h["bits"] if per_sample else res_h["bits_total"]
         bpp_h = bit_h / pixels if per_sample else res_h["bpp_total"]
         ret = {
             "bpp_mv_y": bpp_mv_y,
             "bpp_mv_z": bpp_mv_z,
             "bpp_me": bpp_mv_y + bpp_mv_z if has_mv_bits else None,
-            "me_mse": torch.mean((pred - cur_frame) ** 2),
+            "me_mse": halo.mean_over_width((pred - cur_frame) ** 2),
             "bpp": bpp_h + bpp_mv_y + bpp_mv_z if has_mv_bits else bpp_h,
             "bpp_H": bpp_h,
             "bit_H": bit_h,
@@ -357,7 +407,7 @@ class PMCTF(nn.Module):
             ret["bpp_L"] = (ret["bit_L"] / pixels if per_sample
                             else res_l["bpp_total"])
             ret["mse_L"] = res_l["mse"]
-            ret["me_mse_inv"] = torch.mean((inv_pred - ref_frame) ** 2)
+            ret["me_mse_inv"] = halo.mean_over_width((inv_pred - ref_frame) ** 2)
             ret["L_t"] = res_l["x_hat"]
         else:
             ret["L_t"] = l_t

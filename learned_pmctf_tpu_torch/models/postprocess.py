@@ -9,13 +9,25 @@ casts them, and the kernel's bf16 instance runs every conv; the output
 goes back to f32 at the net's boundary. Unlike the Pallas route, the
 kernel also takes widths that are no multiple of 128 (chroma's 960).
 PostProcessCtx, the contextual variant, runs on stock PyTorch.
+
+Under a spatial shard (parallel/halo.py) PostProcess exchanges one halo
+of 16 columns: its fifteen 3x3 convs reach 15, rounded to 16 so that a
+widened block keeps the variants' width rules (W % 8 == 0, rows of
+16 bytes: ops/conv3x3.py) when the block does. Each rank then launches
+the kernel on its widened plane, with the variants and the launch count
+of the unsharded call.
 """
 
 import torch
 import torch.nn as nn
 
 from ..ops.conv3x3 import conv3x3, conv3x3_plain
+from ..parallel import halo
 from .layers import Conv2d, ResBlock, current_conv_dtype, net_boundary
+
+# fifteen 3x3 convs reach 15 columns; 16 keeps a widened block's width
+# a multiple of 8 when the block's is
+HALO = 16
 
 
 class PostProcess(nn.Module):
@@ -35,6 +47,9 @@ class PostProcess(nn.Module):
         self.use_kernel = True
 
     def forward(self, x):
+        return halo.halo_call(self._forward, x, r=HALO)
+
+    def _forward(self, x):
         kernel = conv3x3 if self.use_kernel else conv3x3_plain
         cdt = current_conv_dtype()
 

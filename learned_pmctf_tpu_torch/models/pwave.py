@@ -14,6 +14,11 @@ bitstream codec (codec/image_codec.py) calls ``quantize_planes``,
 ``fusion_spatial``) and ``reconstruct``. With ``act_bf16`` these run
 under the bf16 activation policy (models/layers.py), as the JAX
 package's do; the codec's stream entry points force f32.
+
+Under a spatial shard (parallel/halo.py) ``forward`` codes this rank's
+block of the columns: its sub-networks exchange their halos, and the
+bits, the pixel count and the squared error are the frame's (summed over
+the spatial group), on every rank.
 """
 
 from __future__ import annotations
@@ -25,7 +30,9 @@ import torch.nn as nn
 
 from ..entropy.distributions import laplace_bits
 from ..ops.quant import quant_ste, ste_clamp
-from .context import ContextFusionFourStep, ContextFusionSubband, SubbandContext
+from ..parallel import halo
+from .context import (AR_RADIUS, ContextFusionFourStep, ContextFusionSubband,
+                      SubbandContext)
 from .layers import policy_scope
 from .postprocess import PostProcess
 from .wavelet import LiftingScheme2D
@@ -96,6 +103,12 @@ class PWave(nn.Module):
             qp_ll = qp_ll * qp_scale
         return qp, qp_ll
 
+    def spatial_align(self) -> int:
+        """What a spatial shard's width must divide by: the lifting halves
+        it at each level with even and odd columns, and the deepest
+        subband's checkerboard needs an even first column."""
+        return 2 ** (self.decomp_levels + 1)
+
     def analysis(self, x) -> Dict[int, Dict[str, torch.Tensor]]:
         subbands = {}
         ll = x
@@ -136,6 +149,7 @@ class PWave(nn.Module):
         Returns dict with x_hat, per-sample bits, bits_total, bpp_total
         (the batch's bits over B*H*W), mse.
         """
+        halo.check_columns(x, self.spatial_align(), "pWave's lifting levels")
         q_scale, q_scale_ll = self.current_q(q_index, qp_scale)
         y = self.analysis(x)
         L = self.decomp_levels
@@ -145,7 +159,7 @@ class PWave(nn.Module):
         ll = self.quantize_subband(y[L - 1]["ll"], q_scale_ll)
         if self.ll_mode == "ar":
             ll_hat = quant_ste(ll, training)
-            scales, means = self.ar_params(ll_hat)
+            scales, means = halo.halo_call(self.ar_params, ll_hat, r=AR_RADIUS)
             bits = laplace_bits(ll_hat - means, scales).sum(dim=(1, 2, 3))
         else:
             _, ll_q, ll_hat, s_hat = fusion[L - 1]["ll"](ll, training=training)
@@ -170,13 +184,14 @@ class PWave(nn.Module):
 
         x_hat = self.reconstruct(subbands_hat, q_index, qp_scale)
 
-        num_pixels = x.shape[0] * x.shape[2] * x.shape[3]
+        bits = halo.sum_over_width(bits)
+        num_pixels = x.shape[0] * x.shape[2] * halo.global_width(x)
         return {
             "x_hat": x_hat,
             "bits": bits,
             "bits_total": bits.sum(),
             "bpp_total": bits.sum() / num_pixels,
-            "mse": torch.mean((x - x_hat) ** 2),
+            "mse": halo.mean_over_width((x - x_hat) ** 2),
         }
 
     # ---- sub-graphs of the bitstream codec -------------------------------

@@ -9,6 +9,12 @@ dataset's flow filter runs (cli/average_flow.py). ``fast_warp`` warps
 inside the pyramid with the separable ``flow_warp_fast``, clamped to
 +-``fast_warp_disp`` (PMCTF wires both to its ``warp_mode`` and
 ``warp_max_disp``).
+
+Under a spatial shard (parallel/halo.py) the pyramid's pooling, its zero
+flow at the coarsest level, the upsampling and a warp at every level all
+reach across the width: each rank gathers the two planes at full width
+(one exchange), runs the whole pyramid and keeps its own columns of the
+flow, exact by construction. Halos a level are later work.
 """
 
 import torch
@@ -17,6 +23,7 @@ import torch.nn.functional as F
 
 from ..ops.resample import avg_pool2, bilinear_upsample
 from ..ops.warp import flow_warp, flow_warp_fast
+from ..parallel import halo
 from .layers import Conv2d, net_boundary
 
 
@@ -60,6 +67,14 @@ class MESpynet(nn.Module):
         return flow_warp(im, flow)
 
     def forward(self, im1, im2):
+        if halo.current() is None:
+            return self._forward(im1, im2)
+        both = halo.gather_width(torch.cat([im1, im2], dim=1))
+        with halo.suspended():
+            flow = self._forward(*both.chunk(2, dim=1))
+        return halo.own_columns(flow)
+
+    def _forward(self, im1, im2):
         im1_list, im2_list = [im1], [im2]
         for _ in range(self.levels - 1):
             im1_list.append(avg_pool2(im1_list[-1]))

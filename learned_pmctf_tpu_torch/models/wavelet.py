@@ -5,6 +5,13 @@ and scale_p/scale_u gains are registered parameters here, as they are
 flax params there. The fixed-tap skip convs carry the full-magnitude
 signal and are exempt from the bf16 activation policy (a bf16 ulp at
 |x| ~ 255 is a whole pixel step); the learned P/U nets return f32.
+
+Under a spatial shard (parallel/halo.py) each lifting step and each
+temporal filter exchanges its halo once: the P/U net's four 3x3 convs
+reach PU_RADIUS columns; the column pass (the rows of the transposed
+plane, where the width is dim 2) adds the skip conv's tap and the
+reflection it pads with, which a shard takes from its neighbours except
+at a frame edge.
 """
 
 from __future__ import annotations
@@ -18,7 +25,11 @@ import torch.nn as nn
 from ..ops.lifting import (CDF97_COEFFS, merge_even_odd, reflect_pad_rows,
                            split_even_odd)
 from ..ops.quant import ste_round
+from ..parallel import halo
 from .layers import Conv2d, PredictUpdate
+
+# columns a PredictUpdate net reaches: four 3x3 convs
+PU_RADIUS = 4
 
 
 def _skip_conv(in_ch: int, taps):
@@ -53,37 +64,48 @@ class LearnedLifting1D(nn.Module):
             self.scale_l.fill_(CDF97_COEFFS[5])
             self.scale_h.fill_(CDF97_COEFFS[4])
 
-    def _increment(self, source, skip_conv, pu_net):
+    def _increment_local(self, source, skip_conv, pu_net):
         skip_path = skip_conv(reflect_pad_rows(source))
         resid = pu_net(skip_path / self.dynamic_range) * self.dynamic_range
         inc = skip_path + resid * 0.1
         return inc if self.lossy else ste_round(inc)
 
-    def forward_lift(self, x):
+    def _increment(self, source, skip_conv, pu_net, wdim: int = 3):
+        """One lifting step's increment; `wdim` is the frame's width
+        axis: 3 in the row pass, 2 in the column pass, where the skip
+        conv's tap and its reflection also reach across the width."""
+        return halo.halo_call(
+            lambda s: self._increment_local(s, skip_conv, pu_net), source,
+            r=PU_RADIUS + (wdim == 2), dim=wdim)
+
+    def forward_lift(self, x, wdim: int = 3):
         x_e, x_o = split_even_odd(x)
-        x_o = x_o + self._increment(x_e, self.conv_P1, self.P_1)
-        x_e = x_e + self._increment(x_o, self.conv_U1, self.U_1)
-        x_o = x_o + self._increment(x_e, self.conv_P2, self.P_2)
-        x_e = x_e + self._increment(x_o, self.conv_U2, self.U_2)
+        x_o = x_o + self._increment(x_e, self.conv_P1, self.P_1, wdim)
+        x_e = x_e + self._increment(x_o, self.conv_U1, self.U_1, wdim)
+        x_o = x_o + self._increment(x_e, self.conv_P2, self.P_2, wdim)
+        x_e = x_e + self._increment(x_o, self.conv_U2, self.U_2, wdim)
         if self.lossy:
             x_e = x_e * self.scale_l
             x_o = x_o * self.scale_h
         return x_e, x_o  # (l, h)
 
-    def backward_lift(self, l, h):
+    def backward_lift(self, l, h, wdim: int = 3):
         if self.lossy:
             l = l / self.scale_l
             h = h / self.scale_h
-        l = l - self._increment(h, self.conv_U2, self.U_2)
-        h = h - self._increment(l, self.conv_P2, self.P_2)
-        l = l - self._increment(h, self.conv_U1, self.U_1)
-        h = h - self._increment(l, self.conv_P1, self.P_1)
+        l = l - self._increment(h, self.conv_U2, self.U_2, wdim)
+        h = h - self._increment(l, self.conv_P2, self.P_2, wdim)
+        l = l - self._increment(h, self.conv_U1, self.U_1, wdim)
+        h = h - self._increment(l, self.conv_P1, self.P_1, wdim)
         return merge_even_odd(l, h)
 
 
 class LiftingScheme2D(nn.Module):
     """Separable 2-D lifting: rows, then columns of both branches. The
-    column pass shares the row module (`lift_v` is `lift_h`)."""
+    column pass shares the row module (`lift_v` is `lift_h`). Under a
+    spatial shard the column pass splits the width into even and odd
+    columns, so every rank's first column must be even at every level
+    (PWave.spatial_align)."""
 
     def __init__(self, in_ch: int = 1, bitdepth: int = 8, lossy: bool = True):
         super().__init__()
@@ -95,16 +117,16 @@ class LiftingScheme2D(nn.Module):
 
     def forward_lift_2d(self, x) -> Dict[str, torch.Tensor]:
         l, h = self.lift_h.forward_lift(x)
-        ll, lh = self.lift_v.forward_lift(l.transpose(2, 3))
-        hl, hh = self.lift_v.forward_lift(h.transpose(2, 3))
+        ll, lh = self.lift_v.forward_lift(l.transpose(2, 3), wdim=2)
+        hl, hh = self.lift_v.forward_lift(h.transpose(2, 3), wdim=2)
         return {"ll": ll.transpose(2, 3), "lh": lh.transpose(2, 3),
                 "hl": hl.transpose(2, 3), "hh": hh.transpose(2, 3),
                 "l": l, "h": h}
 
     def backward_lift_2d(self, subbands: Dict[str, torch.Tensor]):
         t = lambda k: subbands[k].transpose(2, 3)  # noqa: E731
-        l = self.lift_v.backward_lift(t("ll"), t("lh")).transpose(2, 3)
-        h = self.lift_v.backward_lift(t("hl"), t("hh")).transpose(2, 3)
+        l = self.lift_v.backward_lift(t("ll"), t("lh"), wdim=2).transpose(2, 3)
+        h = self.lift_v.backward_lift(t("hl"), t("hh"), wdim=2).transpose(2, 3)
         return self.lift_h.backward_lift(l, h)
 
 
@@ -126,7 +148,7 @@ class TemporalLifting(nn.Module):
             self.scale_u.fill_(0.5)
 
     def _filter(self, x, net, scale):
-        tmp = net(x) * 0.1
+        tmp = halo.halo_call(net, x, r=PU_RADIUS) * 0.1
         if not self.lossy:
             tmp = ste_round(tmp)
         x = x + tmp

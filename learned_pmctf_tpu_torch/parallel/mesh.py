@@ -1,19 +1,23 @@
-"""Data parallelism over the ranks of torch.distributed.
+"""The (data x spatial) mesh over the ranks of torch.distributed.
 
-Counterpart of learned_pmctf_tpu/parallel/mesh.py's "data" axis. There,
-one process places a batch on a mesh and XLA's SPMD partitioner adds the
-gradient all-reduce; here each rank is a process with its own device,
-owns a contiguous block of the batch's rows (as ``P("data")`` splits axis
-0), and the callers reduce explicitly: the train step all-reduces its
+Counterpart of learned_pmctf_tpu/parallel/mesh.py. There, one process
+places a batch on a mesh and XLA's SPMD partitioner adds the collectives;
+here each rank is a process with its own device. Along "data" a rank owns
+a contiguous block of the batch's rows (as ``P("data")`` splits axis 0),
+and the callers reduce explicitly: the train step all-reduces its
 gradients as one flat bucket (``mean_over_ranks_``), the q-batched eval
-gathers host floats to rank 0 (``gather_to_rank0``).
+gathers host floats to rank 0 (``gather_to_rank0``). Along "spatial" a
+rank owns a contiguous block of a frame's columns (``frame_columns``, as
+``P(..., "spatial")`` splits the width), and the models exchange halos
+on the spatial group by hand (parallel/halo.py).
 
 A group is started here (``spawn``: one process a rank, over
 ``tcp://127.0.0.1``), or joined where ``torchrun``
 (``python -m torch.distributed.run``) has set one up in the environment.
-CUDA ranks talk over NCCL, CPU ranks over gloo. The mesh's "spatial" axis
-(width-sharded frames with halo exchanges) is not ported: ROADMAP.md
-item A.17.
+CUDA ranks talk over NCCL, CPU ranks over gloo. The W ranks of a group
+form a (W / S) x S grid in rank order, as JAX's
+``np.asarray(devices).reshape(W // S, S)``: rank r sits at data index
+r // S and spatial index r % S.
 """
 
 from __future__ import annotations
@@ -25,16 +29,31 @@ from typing import List, NamedTuple, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-SPATIAL_ITEM = "A.17"
-
-
 class DataMesh(NamedTuple):
-    """The data axis (torch.distributed's default group) as this rank
-    sees it."""
+    """The (data x spatial) mesh as this rank sees it: its rank and the
+    group's size, its device, the spatial axis' size and the groups of
+    the rank's row (data) and column (spatial) of the grid. With
+    spatial 1 the data axis is the whole group (data_group None: the
+    default group)."""
 
     rank: int
     world: int
     device: torch.device
+    spatial: int = 1
+    data_group: object = None
+    spatial_group: object = None
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.spatial
+
+    @property
+    def data_size(self) -> int:
+        return self.world // self.spatial
+
+    @property
+    def spatial_index(self) -> int:
+        return self.rank % self.spatial
 
 
 def backend_for(device) -> str:
@@ -94,13 +113,25 @@ def init_process_group(device="cuda", rank: Optional[int] = None,
 
 
 def make_mesh(spatial: int = 1, device="cuda", share: bool = False) -> DataMesh:
-    """The data mesh of the joined group (a single rank outside one) on
-    this rank's device (rank_device); spatial > 1 is not ported."""
-    if spatial != 1:
-        raise NotImplementedError(
-            f"width-sharded spatial parallelism is not ported: ROADMAP.md item "
-            f"{SPATIAL_ITEM}")
-    return DataMesh(rank(), world_size(), rank_device(device, share))
+    """The (data x spatial) mesh of the joined group (a single rank
+    outside one) on this rank's device (rank_device). With spatial > 1
+    every rank creates every row and column group, in the same order, as
+    ``dist.new_group`` asks; the group's size must divide by `spatial`."""
+    r, w = rank(), world_size()
+    if spatial < 1 or w % spatial:
+        raise ValueError(f"a group of {w} ranks does not divide over a spatial axis of "
+                         f"{spatial}")
+    data_group = spatial_group = None
+    if spatial > 1:
+        for d in range(w // spatial):
+            g = dist.new_group(list(range(d * spatial, (d + 1) * spatial)))
+            if r // spatial == d:
+                spatial_group = g
+        for s in range(spatial):
+            g = dist.new_group(list(range(s, w, spatial)))
+            if r % spatial == s:
+                data_group = g
+    return DataMesh(r, w, rank_device(device, share), spatial, data_group, spatial_group)
 
 
 def data_rows(n: int, rank: int, world: int) -> slice:
@@ -110,6 +141,19 @@ def data_rows(n: int, rank: int, world: int) -> slice:
         raise ValueError(f"a batch of {n} rows does not divide over {world} ranks")
     per = n // world
     return slice(rank * per, (rank + 1) * per)
+
+
+def frame_columns(width: int, index: int, spatial: int, align: int = 1) -> slice:
+    """The contiguous block of a frame `width` columns wide that spatial
+    index `index` of `spatial` owns (the width's counterpart of
+    data_rows); every block's width must divide by `align`, the
+    alignment of the model's subsampling (PMCTF.spatial_align)."""
+    if width % spatial or (width // spatial) % align:
+        raise ValueError(f"a frame {width} wide over {spatial} ranks gives blocks of "
+                         f"{width / spatial:g} columns, which do not divide by the "
+                         f"alignment {align}")
+    per = width // spatial
+    return slice(index * per, (index + 1) * per)
 
 
 def free_port() -> int:

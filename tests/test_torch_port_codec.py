@@ -164,6 +164,26 @@ def test_pmctf_codec_close_refuses_undrained_decodes(models, tmp_path):
     codec.close()  # the pools are gone, nothing is pending: a no-op
 
 
+def test_pmctf_codec_exit_lets_the_block_error_surface(models, tmp_path):
+    """An exception raised inside the `with` block while a deferred
+    decode is still queued surfaces with its own type (not close()'s
+    RuntimeError); the pools are shut down and the queue cleared all the
+    same."""
+    _, _, port = models
+    luma, chroma = synthetic_frames(2)
+    f = [(torch.tensor(y), torch.tensor(c)) for y, c in zip(luma, chroma)]
+    with pytest.raises(KeyError, match="raised in the block") as info:
+        with PMCTFCodec(port, device="cpu") as codec:
+            codec.update()
+            codec.encode_one_stage(f[0], f[1], True, empty_dpb(),
+                                   str(tmp_path / "s0_0.bin"), 64, 64, psize=PSIZE,
+                                   decode_async=True)
+            assert len(codec._pending_decodes) == 1
+            raise KeyError("raised in the block")
+    assert not isinstance(info.value.__context__, RuntimeError)
+    assert codec._pending_decodes == [] and codec._decode_pool is None
+
+
 def test_codecs_refuse_a_model_on_another_device(models, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="model is on cpu"):

@@ -125,7 +125,7 @@ def test_rows_and_rank_helpers(monkeypatch):
     """data_rows splits axis 0 as P("data"): contiguous blocks in rank
     order, a batch that does not divide raises; one process outside a
     group is rank 0 of 1 on its device; the launcher's environment is
-    recognized; the spatial axis raises and names its ROADMAP item."""
+    recognized; a spatial axis that does not divide the group raises."""
     assert [mesh.data_rows(8, r, 4) for r in range(4)] == [
         slice(0, 2), slice(2, 4), slice(4, 6), slice(6, 8)]
     assert mesh.data_rows(6, 0, 1) == slice(0, 6)
@@ -135,7 +135,7 @@ def test_rows_and_rank_helpers(monkeypatch):
     assert np.array_equal(np.concatenate([x[mesh.data_rows(8, r, 2)] for r in range(2)]), x)
     one = mesh.make_mesh(device="cpu")
     assert (one.rank, one.world, one.device) == (0, 1, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A.17"):
+    with pytest.raises(ValueError, match="1 ranks does not divide over a spatial axis of 2"):
         mesh.make_mesh(spatial=2, device="cpu")
     assert mesh.backend_for("cpu") == "gloo" and mesh.backend_for("cuda:0") == "nccl"
     for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):

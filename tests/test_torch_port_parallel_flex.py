@@ -1,6 +1,8 @@
 """Port parity, cli/flex.py --q_batch --shard_q on the CPU: two gloo
 ranks of a launcher (python -m torch.distributed.run) against one
---q_batch process, then a q batch that does not divide over the ranks.
+--q_batch process, then a q batch that does not divide over the ranks,
+then --shard_q off the batched path (no --q_batch; --write_stream),
+which the JAX CLI takes and leaves unused.
 The JSONs must agree key for key: rates rel 1e-5, PSNR 1e-4 dB,
 everything else but wall times equal. Each rank runs two threads.
 """
@@ -77,3 +79,31 @@ def test_flex_shard_q_falls_back_when_the_batch_does_not_divide(tmp_path):
             in outs["shard"])
     assert "sharded:" not in outs["shard"].replace("not sharded:", "")
     _same_json(_jsons(tmp_path / "shard"), _jsons(tmp_path / "batch"))
+
+
+def test_flex_shard_q_off_the_batched_path_is_unused(tmp_path):
+    """--shard_q where no q batch is coded, as test_pmctf_flex.py takes
+    it: without --q_batch, and with --write_stream (its streams coded one
+    rate point at a time). On two ranks of a launcher rank 0 codes, says
+    the shard is unused, and writes the JSON of the same run without
+    --shard_q."""
+    base = [a for a in FLEX if a != "--q_batch"] + [
+        "--force_intra_period", "2", "--synthetic", "2", "--q_index_num", "2"]
+    runs = {"plain": base, "stream": base + ["--q_batch", "--write_stream", "1"]}
+    procs = {}
+    for name, args in runs.items():
+        for shard in (False, True):
+            out = tmp_path / f"{name}{int(shard)}"
+            extra = ["--output_path", str(out / "out.json"), "--stream_path", str(out / "bin")]
+            procs[name, shard] = _start((LAUNCH if shard else []) + args + extra
+                                        + (["--shard_q"] if shard else []), tmp_path)
+    outs = {k: _finish(p) for k, p in procs.items()}
+    assert ("shard_q unused: no q batch (--q_batch with more than one q index, or "
+            "--seq_batch); rank 0 codes as without --shard_q") in outs["plain", True]
+    assert ("shard_q unused: --write_stream codes one rate point at a time"
+            in outs["stream", True])
+    for name in runs:
+        assert outs[name, True].count("wrote ") == 2  # rank 0's per-q files
+        shard, alone = _jsons(tmp_path / f"{name}1"), _jsons(tmp_path / f"{name}0")
+        assert sorted(shard) == sorted(alone) and len(alone) == 3
+        _same_json(shard, alone)
