@@ -30,9 +30,9 @@ exits non-zero:
    that run are counted, then the GOP is timed, and run once more with
    PostProcess on the plain version to compare the reconstructions (the
    f32 exact-warp GOP-16 is timed by phase 20's bench);
-6. profile: one more GOP under torch.profiler, its device time split by
-   layer (SpyNet, MV coding, lifting, LSTM context, four-step priors,
-   PostProcess) and the device's idle share;
+6. (no phase: a GOP's device time by layer and the device's idle share
+   are the benchmark's traced GOP, pmctf_bench/, read from the port's own
+   layer spans);
 7. stream small reference: the small model's GOP-4 at 64x64 written to
    rANS streams and decoded again (gop.stream_gop through PMCTFCodec), on
    the card and on the CPU: each side decodes bit-exactly what it
@@ -114,8 +114,7 @@ exits non-zero:
    --secondary) in its own process: bench.py's configuration at full
    width, GOP-16 padded 1080p (median of 3), the exact-warp f32 GOP-16
    and the fast-warp stream GOP-4; then in this process the bench
-   configuration's GOP-4 with its conv3x3 launches counted and one GOP
-   profiled by layer, with the device's idle share.
+   configuration's GOP-4 with its conv3x3 launches counted.
 Phase 15 also times the stage-6 GOP-4 step with the fast warp (the
 trainer's default, cli/train_pmctf.py); its profile is the exact warp's.
 
@@ -863,36 +862,7 @@ def phase_slice(smi):
           "max_abs_recon_diff_vs_plain": diff,
           "bits": {str(k): v for k, v in out["bits"].items()},
           "card": smi})
-    phase_profile(model, luma, chroma)
     return by_variant, (model, luma, chroma, out["bits"])
-
-
-def _layer_labels(model):
-    """Module -> layer label, for the device-time breakdown."""
-    from learned_pmctf_tpu_torch.models.context import LSTM2D, UpsampleModule
-    from learned_pmctf_tpu_torch.models.layers import PredictUpdate
-    labels = {model.optic_flow: "spynet"}
-    for name in ("mv_encoder", "mv_decoder", "mv_hyper_prior_encoder",
-                 "mv_hyper_prior_decoder", "mv_y_prior_fusion_adaptor_0",
-                 "mv_y_prior_fusion_adaptor_1", "mv_y_prior_fusion",
-                 "mv_y_spatial_prior", "mv_y_spatial_prior_adaptor_1",
-                 "mv_y_spatial_prior_adaptor_2", "mv_y_spatial_prior_adaptor_3"):
-        for m in getattr(model, name):
-            labels[m] = "mv coding"
-    for tf in model.temporal_filtering:
-        labels[tf.P_t] = labels[tf.U_t] = "temporal lifting"
-    for coder in (model.lp_coder, model.hp_coder):
-        for m in coder.wavelet_transform.modules():
-            if isinstance(m, PredictUpdate):
-                labels[m] = "spatial lifting"
-        for m in coder.context_prediction.modules():
-            if isinstance(m, (LSTM2D, UpsampleModule)):
-                labels[m] = "lstm context"
-        for bands in coder.context_fusion:
-            for m in bands.values():
-                labels[m] = "four-step priors"
-        labels[coder.dequantModule] = "postprocess (conv3x3)"
-    return labels
 
 
 def device_kernels(prof):
@@ -905,54 +875,6 @@ def device_kernels(prof):
     if not busy_ms > 0:
         raise AssertionError("the profiler saw no kernel run on the device")
     return kernels, busy_ms
-
-
-def phase_profile(model, luma, chroma, phase="profile"):
-    """Device time of one GOP by layer (torch.profiler, CUPTI)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-    from learned_pmctf_tpu_torch.gop import code_gop
-    labels = _layer_labels(model)
-    ranges = {}
-
-    def pre(m, args):
-        ranges[m] = record_function(labels[m])
-        ranges[m].__enter__()
-
-    def post(m, args, out):
-        ranges.pop(m).__exit__(None, None, None)
-
-    hooks = [h for m in labels for h in (m.register_forward_pre_hook(pre),
-                                         m.register_forward_hook(post))]
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            code_gop(model, luma, chroma, 10.0)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-    finally:
-        for h in hooks:
-            h.remove()
-    names = set(labels.values())
-    # device time of each layer: the kernels launched inside its ranges
-    by_layer = dict.fromkeys(sorted(names), 0.0)
-    for e in prof.events():
-        if e.name in names and e.device_type == DeviceType.CPU:
-            by_layer[e.name] += e.device_time_total / 1e3
-    kernels, busy_ms = device_kernels(prof)
-    # a ctypes launch is no torch op, so the profiler ties the conv3x3
-    # kernel to no range; PostProcess is its only caller
-    conv_ms = {e.key[:100]: e.self_device_time_total / 1e3 for e in kernels
-               if "conv3x3" in e.key and "_kernel" in e.key}
-    by_layer["postprocess (conv3x3)"] += sum(conv_ms.values())
-    by_layer["other"] = busy_ms - sum(by_layer.values())
-    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
-    emit({"phase": phase, "gop": GOP, "wall_ms_profiled": wall_ms,
-          "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms,
-          "device_ms_by_layer": by_layer, "conv3x3_kernels_ms": conv_ms,
-          "top_device_ops_ms": {e.key[:80]: e.self_device_time_total / 1e3
-                                for e in top[:8]}})
 
 
 def stream_files(d):
@@ -1376,8 +1298,8 @@ def phase_bench(smi):
     """The port's bench as a user runs it, in its own process (GOP-16 in
     bench.py's configuration, median of 3; --secondary: the exact-warp
     f32 GOP-16 and the fast-warp stream GOP-4), then the bench
-    configuration's GOP-4 here: its conv3x3 launches counted, one GOP
-    profiled by layer. Returns the GOP-4's launches by variant."""
+    configuration's GOP-4 here: its conv3x3 launches counted. Returns the
+    GOP-4's launches by variant."""
     from learned_pmctf_tpu_torch.cli.bench import BENCH_CONFIG, METRIC, bench_frames
     from learned_pmctf_tpu_torch.gop import code_gop
     from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
@@ -1432,7 +1354,6 @@ def phase_bench(smi):
     emit({"phase": "bench", "command": " ".join(cmd[1:]), "wall_s": wall_s,
           "bench": out, "gop4_ms": gop4_ms, "gop4_conv3x3_launches_by_variant": by_variant,
           "card": smi})
-    phase_profile(model, luma, chroma, phase="bench_profile")
     del model, luma, chroma, gop4
     torch.cuda.empty_cache()
     return by_variant
@@ -1940,43 +1861,29 @@ def profile_train_step(model, opt, frames, noise):
     """Device time of one GOP-4 train step: forward, backward (the
     recompute included), optimizer, each ended by a synchronize so that
     a kernel's device time falls in its part's window; the recompute is
-    the device time of the module ranges that run inside backward; the
-    forward and the recompute split by layer as the estimate profile
-    splits them (conv3x3 launches through ctypes belong to no range: their
-    time is reported whole); the device's idle share."""
+    the device time of the layer spans that run inside backward; the
+    forward and the recompute split by the port's layer spans
+    (learned_pmctf_tpu_torch/telemetry.py, on while the profiler runs;
+    conv3x3 launches through ctypes belong to no span: their time is
+    reported whole); the device's idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
+    from learned_pmctf_tpu_torch import telemetry
     from learned_pmctf_tpu_torch.training.steps import StageGates, pmctf_gop_loss
-    labels = _layer_labels(model)
-    ranges = {}
-
-    def pre(m, args):
-        ranges[m] = record_function(labels[m])
-        ranges[m].__enter__()
-
-    def post(m, args, out):
-        ranges.pop(m).__exit__(None, None, None)
-
-    hooks = [h for m in labels for h in (m.register_forward_pre_hook(pre),
-                                         m.register_forward_hook(post))]
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            opt.zero_grad()
-            with record_function("train:forward"):
-                loss, _ = pmctf_gop_loss(model, frames, 10.0, 0.05,
-                                         StageGates.for_stage(5), noise=noise)
-                torch.cuda.synchronize()
-            with record_function("train:backward"):
-                loss.backward()
-                torch.cuda.synchronize()
-            with record_function("train:optimizer"):
-                opt.step()
-                torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-    finally:
-        for h in hooks:
-            h.remove()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        opt.zero_grad()
+        with record_function("train:forward"):
+            loss, _ = pmctf_gop_loss(model, frames, 10.0, 0.05,
+                                     StageGates.for_stage(5), noise=noise)
+            torch.cuda.synchronize()
+        with record_function("train:backward"):
+            loss.backward()
+            torch.cuda.synchronize()
+        with record_function("train:optimizer"):
+            opt.step()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
     events = prof.events()
     spans = {e.name.split(":")[1]: e.time_range for e in events
              if e.device_type == DeviceType.CPU and e.name.startswith("train:")}
@@ -1986,7 +1893,7 @@ def profile_train_step(model, opt, frames, noise):
             for part, span in spans.items():
                 if span.start <= e.time_range.start < span.end:
                     part_ms[part] += e.time_range.elapsed_us() / 1e3
-    names = set(labels.values())
+    names = set(telemetry.LAYERS)
     by_layer = {"forward": dict.fromkeys(sorted(names), 0.0),
                 "recompute": dict.fromkeys(sorted(names), 0.0)}
     for e in events:

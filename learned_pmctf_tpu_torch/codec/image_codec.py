@@ -29,6 +29,7 @@ are computed with the device's ``log`` (entropy/coder.py).
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Optional
@@ -36,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..entropy.coder import (EntropyCoder, GaussianEncoder,
                              build_indexes_from_scales)
 from ..models.layers import f32_streams
@@ -57,7 +59,9 @@ class HostStats:
     from the device (each one waits for the device's queue to drain),
     seconds spent in rANS calls, the AR LL decoder's fronts and seconds
     (threads overlap, so the sums may exceed the wall time), and the
-    largest |symbol| of the band streams written."""
+    largest |symbol| of the band streams written. The copies and the rANS
+    calls are also telemetry's ``d2h`` and ``rans encode``/``rans
+    decode`` spans."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -82,9 +86,17 @@ class HostStats:
     def to_host(self, t: torch.Tensor) -> np.ndarray:
         with self._lock:
             self.syncs += 1
-        return t.cpu().numpy()
+        with telemetry.span("d2h"):
+            return t.cpu().numpy()
 
-    def add_rans(self, kind: str, seconds: float):
+    @contextlib.contextmanager
+    def rans(self, kind: str):
+        """Around one rANS call (`kind` "encode" or "decode"): its
+        seconds into rans_<kind>_s, inside a ``rans <kind>`` span."""
+        with telemetry.span(f"rans {kind}"):
+            t0 = time.perf_counter()
+            yield
+            seconds = time.perf_counter() - t0
         with self._lock:
             name = f"rans_{kind}_s"
             setattr(self, name, getattr(self, name) + seconds)
@@ -201,9 +213,8 @@ class PWaveCodec:
                 m = torch.round(m)
             if teacher is None:
                 idx_host = self.stats.to_host(idx)
-                t0 = time.perf_counter()
-                vals = coder.decode_stream(idx_host, *self.em.tables())
-                self.stats.add_rans("decode", time.perf_counter() - t0)
+                with self.stats.rans("decode"):
+                    vals = coder.decode_stream(idx_host, *self.em.tables())
                 vals = torch.from_numpy(vals.reshape(idx_host.shape)).to(
                     self.device, torch.float32)
             else:
@@ -241,9 +252,8 @@ class PWaveCodec:
         for rows, cols in fronts:
             both = self.stats.to_host(self._ar_plane(partial))
             idx = both[0][:, :, rows, cols].transpose(2, 0, 1)
-            t0 = time.perf_counter()
-            vals = coder.decode_stream(idx, *self.em.tables())
-            self.stats.add_rans("decode", time.perf_counter() - t0)
+            with self.stats.rans("decode"):
+                vals = coder.decode_stream(idx, *self.em.tables())
             vals = (vals.reshape(idx.shape).astype(np.int32)
                     + both[1][:, :, rows, cols].transpose(2, 0, 1))
             partial[:, :, torch.from_numpy(rows), torch.from_numpy(cols)] = (
@@ -327,22 +337,22 @@ class PWaveCodec:
         x_hat = self.module.reconstruct(subbands_hat, q_index, qp_scale)
 
         coder = coder or self.coder
-        t0 = time.perf_counter()
-        coder.reset()
-        for kind, tensors in plans:
-            got = [next(fetched) for _ in tensors]
-            if kind == "ar":
-                self._encode_ar(coder, *got)
-                continue
-            for vals, idx in zip(got[::2], got[1::2]):
-                self.stats.add_symbols(vals)
-                coder.encode_with_indexes(vals, idx, *self.em.tables())
-        coder.flush()
-        bit_stream = coder.get_encoded_stream()
-        self.stats.add_rans("encode", time.perf_counter() - t0)
+        with self.stats.rans("encode"):
+            coder.reset()
+            for kind, tensors in plans:
+                got = [next(fetched) for _ in tensors]
+                if kind == "ar":
+                    self._encode_ar(coder, *got)
+                    continue
+                for vals, idx in zip(got[::2], got[1::2]):
+                    self.stats.add_symbols(vals)
+                    coder.encode_with_indexes(vals, idx, *self.em.tables())
+            coder.flush()
+            bit_stream = coder.get_encoded_stream()
         if file_name is not None:
             _, num_channels, height, width = sideinfo
-            encode_image(height, width, num_channels, bit_stream, file_name)
+            with telemetry.span("file write"):
+                encode_image(height, width, num_channels, bit_stream, file_name)
         return x_hat, bit_stream
 
     # ---- decompression -----------------------------------------------------

@@ -21,6 +21,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from .. import telemetry
 from ..entropy.coder import (FactorizedCoder, GaussianEncoder,
                              build_bit_estimator_tables,
                              build_indexes_from_scales)
@@ -141,9 +142,8 @@ class PMCTFCodec:
                 four_part_prior_decode_scales(scales_q, masks, step))
             if teacher_y is None:
                 idx_host = self.stats.to_host(idx)
-                t0 = time.perf_counter()
-                vals = coder.decode_stream(idx_host, *self.em.tables())
-                self.stats.add_rans("decode", time.perf_counter() - t0)
+                with self.stats.rans("decode"):
+                    vals = coder.decode_stream(idx_host, *self.em.tables())
                 vals = torch.from_numpy(vals.reshape(idx_host.shape)).to(
                     mv_params.device, torch.float32)
             else:
@@ -177,16 +177,15 @@ class PMCTFCodec:
         fetched = bulk_fetch_int32([mv_z_hat] + [t for pair in plan for t in pair],
                                    self.stats)
         coder = coder or self.coder
-        t0 = time.perf_counter()
-        coder.reset()
-        self._mv_coders[stage].encode(coder, fetched[0])
-        it = iter(fetched[1:])
-        for _ in plan:
-            vals, idx = next(it), next(it)
-            coder.encode_with_indexes(vals, idx, *self.em.tables())
-        coder.flush()
-        out["bit_stream"] = coder.get_encoded_stream()
-        self.stats.add_rans("encode", time.perf_counter() - t0)
+        with self.stats.rans("encode"):
+            coder.reset()
+            self._mv_coders[stage].encode(coder, fetched[0])
+            it = iter(fetched[1:])
+            for _ in plan:
+                vals, idx = next(it), next(it)
+                coder.encode_with_indexes(vals, idx, *self.em.tables())
+            coder.flush()
+            out["bit_stream"] = coder.get_encoded_stream()
         return out
 
     @torch.no_grad()
@@ -201,9 +200,8 @@ class PMCTFCodec:
         # me_downsample, the downsampled one
         zh, zw = get_downsampled_shape(int(height) // me_downsample,
                                        int(width) // me_downsample, 64)
-        t0 = time.perf_counter()
-        z = self._mv_coders[stage].decode_stream(coder, (zh, zw))
-        self.stats.add_rans("decode", time.perf_counter() - t0)
+        with self.stats.rans("decode"):
+            z = self._mv_coders[stage].decode_stream(coder, (zh, zw))
         mv_z_hat = torch.from_numpy(z).to(self.device)
         mv_params = self.model.mv_prior_params(mv_z_hat, dpb, stage)
         out = self._mv_code(stage, mv_params, q_index, me_downsample, coder=coder)
@@ -270,15 +268,18 @@ class PMCTFCodec:
         replay makes bit-identical to a decoder's own."""
         _, string = decode_p(mv_out)
         pool = self._pool()
+        # each unit's spans take the span that submitted it as parent
+        decode_mv = telemetry.carry(self.decompress_mv)
+        decode_bands = telemetry.carry(self.decompress_one_stage)
         return (
-            pool.submit(self.decompress_mv, string, yshape[0], yshape[1], dpb,
+            pool.submit(decode_mv, string, yshape[0], yshape[1], dpb,
                         stage_idx=stage_idx, q_index=q_index,
                         me_downsample=me_downsample,
                         coder=PWaveCodec.make_coder()),
-            pool.submit(self.decompress_one_stage, output_path, code_lt,
+            pool.submit(decode_bands, output_path, code_lt,
                         ischroma=False, psize=psize, q_index=q_index,
                         stage_idx=stage_idx, own_coders=True),
-            pool.submit(self.decompress_one_stage, file_name_c, code_lt,
+            pool.submit(decode_bands, file_name_c, code_lt,
                         ischroma=True, psize=psize, q_index=q_index,
                         stage_idx=stage_idx, own_coders=True))
 
@@ -307,7 +308,8 @@ class PMCTFCodec:
         out = []
         pend, self._pending_decodes = self._pending_decodes, []
         for item in pend:
-            decoded, dec_l, dec_c = (f.result() for f in item["futures"])
+            with telemetry.span("wait decode units"):
+                decoded, dec_l, dec_c = (f.result() for f in item["futures"])
             errs = (self._errors(decoded, dec_l, dec_c, item["expect"],
                                  item["code_lt"]) if check else {})
             max_err = max(errs.values()) if errs else 0.0
@@ -370,7 +372,8 @@ class PMCTFCodec:
         mv_out = output_path.replace(".bin", "_mv.bin")
         out_enc = self.compress_mv(ref_y, cur_y, dpb, stage_idx, q_index,
                                    me_downsample)
-        encode_p(out_enc["bit_stream"], 0, mv_out)
+        with telemetry.span("file write"):
+            encode_p(out_enc["bit_stream"], 0, mv_out)
         mv_hat = out_enc["mv_hat"]
         mv_feature = out_enc["mv_feature"]
         mv_y_hat = out_enc["mv_y_hat"]
@@ -378,17 +381,19 @@ class PMCTFCodec:
         # luma and chroma are independent given mv_hat: one thread each,
         # each with its own coders
         file_name_c = output_path.replace(".bin", "_C_main.bin")
+        compress = telemetry.carry(self.compress_one_stage)
         f_l = self._enc_pool().submit(
-            self.compress_one_stage, ref_y, cur_y, code_lt, mv_hat,
+            compress, ref_y, cur_y, code_lt, mv_hat,
             ischroma=False, sideinfo=[1, 1, pic_height, pic_width],
             file_name=output_path, stage_idx=stage_idx, q_index=q_index,
             own_coders=True)
         f_c = self._enc_pool().submit(
-            self.compress_one_stage, ref_chroma, cur_chroma, code_lt, mv_hat,
+            compress, ref_chroma, cur_chroma, code_lt, mv_hat,
             ischroma=True, sideinfo=[1, 2, pic_height // 2, pic_width // 2],
             file_name=file_name_c, stage_idx=stage_idx, q_index=q_index,
             own_coders=True)
-        out_l, out_c = f_l.result(), f_c.result()
+        with telemetry.span("wait encode units"):
+            out_l, out_c = f_l.result(), f_c.result()
         encoding_time = time.perf_counter() - start
 
         def bits(path):
@@ -416,7 +421,8 @@ class PMCTFCodec:
                      "futures": futures, "expect": expect})
             else:
                 start = time.perf_counter()
-                decoded, out_dec, out_dec_c = (f.result() for f in futures)
+                with telemetry.span("wait decode units"):
+                    decoded, out_dec, out_dec_c = (f.result() for f in futures)
                 decoding_time = time.perf_counter() - start
                 mv_hat = decoded["mv_hat"]
                 mv_feature = decoded["mv_feature"]

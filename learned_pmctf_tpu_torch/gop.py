@@ -23,6 +23,7 @@ from typing import Dict, List, Sequence
 
 import torch
 
+from . import telemetry
 from .codec.video_codec import PMCTFCodec
 from .models.pmctf import PMCTF, empty_dpb
 from .runtime import disable_tf32, resolve_device
@@ -44,6 +45,7 @@ def gop_schedule(gop: int):
 
 
 @torch.no_grad()
+@telemetry.spanned(telemetry.GOP)
 def code_gop(model: PMCTF, luma: Sequence, chroma: Sequence, q_index,
              device="cuda") -> Dict:
     """Code one GOP and decode it again.
@@ -74,26 +76,28 @@ def code_gop(model: PMCTF, luma: Sequence, chroma: Sequence, q_index,
         if stage != cur_stage:
             cur_stage, dpb = stage, empty_dpb()
         me = model.me_index(stage)
-        out = model.forward_one_stage(fl[fi], fl[fi + step], q_index, code_lt,
-                                      dpb, stage_idx=me)
-        outc = model.forward_one_stage(fc[fi], fc[fi + step], q_index, code_lt,
-                                       empty_dpb(), mv_hat=out["mv_hat"],
-                                       stage_idx=me)
-        dpb = out["dpb"]
-        fl[fi], fl[fi + step] = out["L_t"], out["H_t"]
-        fc[fi], fc[fi + step] = outc["L_t"], outc["H_t"]
-        mvs[fi + step] = out["mv_hat"]
-        bits[fi + step] = {"bit_H": out["bit_H"] + outc["bit_H"],
-                           "bit_ME": out["bit_ME"]}
-        if code_lt:
-            bits[fi] = {"bit_L": out["bit_L"] + outc["bit_L"]}
+        with telemetry.span("pair", stage=stage, pair=fi // (2 * step), code_lt=code_lt):
+            out = model.forward_one_stage(fl[fi], fl[fi + step], q_index, code_lt,
+                                          dpb, stage_idx=me)
+            outc = model.forward_one_stage(fc[fi], fc[fi + step], q_index, code_lt,
+                                           empty_dpb(), mv_hat=out["mv_hat"],
+                                           stage_idx=me)
+            dpb = out["dpb"]
+            fl[fi], fl[fi + step] = out["L_t"], out["H_t"]
+            fc[fi], fc[fi + step] = outc["L_t"], outc["H_t"]
+            mvs[fi + step] = out["mv_hat"]
+            bits[fi + step] = {"bit_H": out["bit_H"] + outc["bit_H"],
+                               "bit_ME": out["bit_ME"]}
+            if code_lt:
+                bits[fi] = {"bit_L": out["bit_L"] + outc["bit_L"]}
 
-    for stage, fi, step, _ in reversed(sched):
-        me = model.me_index(stage)
-        fl[fi], fl[fi + step] = model.inverse_mctf(
-            fl[fi], fl[fi + step], mvs[fi + step], stage_idx=me)
-        fc[fi], fc[fi + step] = model.inverse_mctf(
-            fc[fi], fc[fi + step], mvs[fi + step], stage_idx=me, downscale=True)
+    with telemetry.span("inverse ladder"):
+        for stage, fi, step, _ in reversed(sched):
+            me = model.me_index(stage)
+            fl[fi], fl[fi + step] = model.inverse_mctf(
+                fl[fi], fl[fi + step], mvs[fi + step], stage_idx=me)
+            fc[fi], fc[fi + step] = model.inverse_mctf(
+                fc[fi], fc[fi + step], mvs[fi + step], stage_idx=me, downscale=True)
 
     return {"bits": {fi: {k: float(v) for k, v in b.items()}
                      for fi, b in sorted(bits.items())},
@@ -101,6 +105,7 @@ def code_gop(model: PMCTF, luma: Sequence, chroma: Sequence, q_index,
 
 
 @torch.no_grad()
+@telemetry.spanned(telemetry.GOP)
 def stream_gop(codec: PMCTFCodec, luma: Sequence, chroma: Sequence, q_index,
                out_dir: str, psize: int = 128, skip_decoding: bool = False,
                decode_async: bool = False, device="cuda") -> Dict:
@@ -142,30 +147,32 @@ def stream_gop(codec: PMCTFCodec, luma: Sequence, chroma: Sequence, q_index,
         if stage != cur_stage:
             cur_stage, dpb, pair = stage, empty_dpb(), 0
         path = os.path.join(out_dir, f"s{stage}_{pair}.bin")
-        out = codec.encode_one_stage(
-            (fl[fi], fc[fi]), (fl[fi + step], fc[fi + step]), code_lt, dpb,
-            path, pic_width=w, pic_height=h, psize=psize,
-            skip_decoding=skip_decoding, stage_idx=stage, q_index=q_index,
-            decode_async=decode_async)
-        if not (skip_decoding or decode_async):
-            max_err[path] = _max_diff(codec, out, code_lt)
-        dpb = out["dpb"]
-        fl[fi], fl[fi + step] = out["L_t"], out["H_t"]
-        fc[fi], fc[fi + step] = out["L_tc"], out["H_tc"]
-        mvs[fi + step] = out["mv_hat"]
-        bits[fi + step] = {"bit_H": out["bit_H"], "bit_ME": out["bit_ME"]}
-        if code_lt:
-            bits[fi] = {"bit_L": out["bit_L"]}
+        with telemetry.span("pair", stage=stage, pair=pair, code_lt=code_lt):
+            out = codec.encode_one_stage(
+                (fl[fi], fc[fi]), (fl[fi + step], fc[fi + step]), code_lt, dpb,
+                path, pic_width=w, pic_height=h, psize=psize,
+                skip_decoding=skip_decoding, stage_idx=stage, q_index=q_index,
+                decode_async=decode_async)
+            if not (skip_decoding or decode_async):
+                max_err[path] = _max_diff(codec, out, code_lt)
+            dpb = out["dpb"]
+            fl[fi], fl[fi + step] = out["L_t"], out["H_t"]
+            fc[fi], fc[fi + step] = out["L_tc"], out["H_tc"]
+            mvs[fi + step] = out["mv_hat"]
+            bits[fi + step] = {"bit_H": out["bit_H"], "bit_ME": out["bit_ME"]}
+            if code_lt:
+                bits[fi] = {"bit_L": out["bit_L"]}
         pair += 1
     if decode_async:
         for d in codec.drain_decodes(check=True, strict=True):
             max_err[d["name"]] = d["max_err"]
 
-    for stage, fi, step, _ in reversed(sched):
-        fl[fi], fl[fi + step] = codec.inverse_mctf(
-            fl[fi], fl[fi + step], mvs[fi + step], stage_idx=stage)
-        fc[fi], fc[fi + step] = codec.inverse_mctf(
-            fc[fi], fc[fi + step], mvs[fi + step], stage_idx=stage, downscale=True)
+    with telemetry.span("inverse ladder"):
+        for stage, fi, step, _ in reversed(sched):
+            fl[fi], fl[fi + step] = codec.inverse_mctf(
+                fl[fi], fl[fi + step], mvs[fi + step], stage_idx=stage)
+            fc[fi], fc[fi + step] = codec.inverse_mctf(
+                fc[fi], fc[fi + step], mvs[fi + step], stage_idx=stage, downscale=True)
     return {"bits": dict(sorted(bits.items())), "luma": fl, "chroma": fc,
             "max_err": max_err}
 

@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from .. import telemetry
 from ..ops.masks import checkerboard_masks
 from ..ops.quant import quant_ste, ste_round
 from ..ops.resample import nearest_upsample
@@ -219,6 +220,7 @@ class ContextFusionFourStep(nn.Module):
                 ContextResidual(features), ContextResidual(features),
                 Conv2d(features, num_params, 1)))
 
+    @telemetry.spanned(telemetry.PRIORS)
     def hier_params(self, context=None, prev_subband=None, like=None):
         """Context features + step-0 (scales, means)."""
         if self.use_ctx:
@@ -234,6 +236,7 @@ class ContextFusionFourStep(nn.Module):
         scales, means = net_boundary(params).chunk(2, dim=1)
         return feat, scales, means
 
+    @telemetry.spanned(telemetry.PRIORS)
     def spatial_params(self, x_hat_so_far, ctx_feat, step: int):
         """(scales, means) for pass `step+1` given the recon so far."""
         y = getattr(self, f"y_spatial_prior_{step + 1}")(x_hat_so_far)

@@ -15,7 +15,8 @@ package's, with its rounding points, not ``torch.autocast``'s: under
 ``policy_scope`` every ``Conv2d`` that is not ``policy_exempt`` casts its
 input and weight to bf16, convolves with f32 accumulation, rounds to
 bf16 and then adds its bias in bf16; the elementwise ops between convs
-run in bf16; the self-contained nets cast back to f32 at their return.
+run in bf16; the self-contained nets cast back to f32 at their return;
+every cast goes through ``policy_cast``, which telemetry counts.
 Stream entry points run inside ``f32_streams``, which switches the
 policy off: the range coder needs encoder and decoder bit-identical.
 The policy is one stack for the process, as the JAX package's (the
@@ -33,6 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import telemetry
 from ..ops.masks import causal_conv_mask
 
 # flax's truncated_normal divides by the std of a unit normal cut at +-2
@@ -41,6 +43,10 @@ _TRUNC_STD = 0.87962566103423978
 
 _CONV_COMPUTE_DTYPE = [None]
 _FORCE_F32 = [False]
+
+# the policy's telemetry counters (telemetry.py)
+CASTS = "policy casts"
+CAST_BYTES = "policy cast bytes"
 
 
 @contextlib.contextmanager
@@ -82,11 +88,24 @@ def policy_scope(fn):
     return wrapped
 
 
+def policy_cast(t, dtype):
+    """`t` in `dtype`, as ``t.to(dtype)``: one of the policy's casts.
+    One that changes the dtype launches a kernel; while telemetry is on
+    it counts under CASTS, and the bytes it reads and writes under
+    CAST_BYTES."""
+    if t.dtype == dtype:
+        return t
+    if telemetry.on():
+        telemetry.count(CASTS)
+        telemetry.count(CAST_BYTES, t.numel() * (t.element_size() + dtype.itemsize))
+    return t.to(dtype)
+
+
 def net_boundary(x):
     """Where a self-contained net returns under the policy: bf16
     activations go back to f32 (JAX's astype(float32)); f32 and float64
     runs pass through."""
-    return x.float() if x.dtype == torch.bfloat16 else x
+    return policy_cast(x, torch.float32) if x.dtype == torch.bfloat16 else x
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -146,9 +165,11 @@ class Conv2d(nn.Conv2d):
         have nothing to gain: cuDNN 9.2's bf16 algorithm returned garbage
         for 1->1 3x3 convs on 16x16 and 32x32 planes, from run to run
         (NVIDIA H100, cuDNN 92200; tests/test_torch_port_bench_card.py)."""
-        x, w = x.to(cdt), w.to(cdt)
+        x, w = policy_cast(x, cdt), policy_cast(w, cdt)
         if x.device.type == "cpu" or min(w.shape[:2]) < 8:
-            return self._conv_forward(x.float(), w.float(), None).to(cdt)
+            f32 = torch.float32
+            y = self._conv_forward(policy_cast(x, f32), policy_cast(w, f32), None)
+            return policy_cast(y, cdt)
         return self._conv_forward(x, w, None)
 
     def forward(self, x):
@@ -157,7 +178,7 @@ class Conv2d(nn.Conv2d):
             return self._conv_forward(x, self.weight, self.bias)
         # JAX's order: conv rounded to bf16, then the bias added in bf16
         y = self.policy_conv(x, self.weight, cdt)
-        return y if self.bias is None else y + self.bias.to(cdt).view(1, -1, 1, 1)
+        return y if self.bias is None else y + policy_cast(self.bias, cdt).view(1, -1, 1, 1)
 
 
 class MaskedConv2d(Conv2d):

@@ -33,6 +33,7 @@ import math
 import torch
 import torch.nn as nn
 
+from .. import telemetry
 from ..entropy.bit_estimator import BitEstimator
 from ..entropy.distributions import laplace_bits
 from ..ops.resample import bilinear_downsample, bilinear_upsample
@@ -56,6 +57,34 @@ MV_PRIOR_HALO = 2   # the hyper-latent at 1/64: HyperDecoder + the prior's fusio
 MV_DEC_HALO = 3     # the MV latent at 1/16: MvDec, to full resolution
 MV_DOWN_HALO = 2    # luma MVs: the chroma MVs' antialiased 2x downsample (one column)
 MV_ALIGN = 64       # six stride-2 convs from the flow to the hyper-latent
+
+# the MV coder's per-stage modules: with SpyNet, the motion layer
+_MV_MODULES = ("mv_encoder", "mv_decoder", "mv_hyper_prior_encoder",
+               "mv_hyper_prior_decoder", "mv_y_prior_fusion_adaptor_0",
+               "mv_y_prior_fusion_adaptor_1", "mv_y_prior_fusion", "mv_y_spatial_prior",
+               "mv_y_spatial_prior_adaptor_1", "mv_y_spatial_prior_adaptor_2",
+               "mv_y_spatial_prior_adaptor_3")
+
+
+def layer_modules(model: "PMCTF"):
+    """(module, layer) for the modules that open one of the model's
+    layers (telemetry's names); each call of one is a span of its layer."""
+    out = [(model.optic_flow, telemetry.MOTION)]
+    out += [(m, telemetry.MOTION) for name in _MV_MODULES for m in getattr(model, name)]
+    for tf in model.temporal_filtering:
+        out += [(tf.P_t, telemetry.TEMPORAL), (tf.U_t, telemetry.TEMPORAL)]
+    for coder in (model.lp_coder, model.hp_coder):
+        lift = coder.wavelet_transform.lift_h
+        out += [(getattr(lift, n), telemetry.LIFTING) for n in
+                ("P_1", "U_1", "P_2", "U_2", "conv_P1", "conv_U1", "conv_P2", "conv_U2")]
+        ctx = coder.context_prediction
+        out += [(m, telemetry.LSTM) for m in (ctx.LSTM1, ctx.LSTM2, ctx.LSTM3)]
+        out += [(m, telemetry.LSTM) for j in (1, 2, 3) for k in ("h", "c")
+                for m in getattr(ctx, f"deconv_{k}{j}")]
+        out += [(m, telemetry.PRIORS) for bands in coder.context_fusion
+                for m in bands.values()]
+        out.append((coder.dequantModule, telemetry.POSTPROCESS))
+    return out
 
 
 def empty_dpb():
@@ -128,6 +157,8 @@ class PMCTF(nn.Module):
         self.hp_q_scale = ones()
         self.mv_bit_est = per_stage(lambda: BitEstimator(c_mv))
         self.temporal_filtering = per_stage(lambda: TemporalLifting(lossy=lossy))
+        for m, layer in layer_modules(self):
+            telemetry.span_calls(m, layer)
 
     def reset_parameters(self, generator=None):
         with torch.no_grad():
@@ -256,6 +287,7 @@ class PMCTF(nn.Module):
 
     # ---- sub-graphs of the bitstream codec -------------------------------
 
+    @telemetry.spanned(telemetry.MOTION)
     @policy_scope
     def mv_latent_planes(self, ref_y, cur_y, dpb, stage_idx: int, q_index,
                          me_downsample: int = 1):
@@ -265,6 +297,7 @@ class PMCTF(nn.Module):
                                       me_downsample)
         return mv_y, torch.round(mv_z)
 
+    @telemetry.spanned(telemetry.MOTION)
     @policy_scope
     def mv_prior_params(self, mv_z_hat, dpb, stage_idx: int):
         return self.mv_prior_param_decoder(mv_z_hat, dpb, self.me_index(stage_idx))
@@ -275,6 +308,7 @@ class PMCTF(nn.Module):
         _, q_dec, scales, means = separate_prior_enc_dec(mv_params)
         return q_dec, scales.chunk(4, dim=1), means.chunk(4, dim=1)
 
+    @telemetry.spanned(telemetry.MOTION)
     @policy_scope
     def mv_decode_spatial(self, y_hat_so_far, mv_params, stage_idx: int,
                           step: int):
@@ -285,6 +319,7 @@ class PMCTF(nn.Module):
         chunks = net_boundary(out).chunk(8, dim=1)
         return chunks[:4], chunks[4:]
 
+    @telemetry.spanned(telemetry.MOTION)
     @policy_scope
     def mv_decode_tail(self, mv_y_hat, stage_idx: int, q_index,
                        me_downsample: int = 1):

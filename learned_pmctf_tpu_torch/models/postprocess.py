@@ -23,7 +23,7 @@ import torch.nn as nn
 
 from ..ops.conv3x3 import conv3x3, conv3x3_plain
 from ..parallel import halo
-from .layers import Conv2d, ResBlock, current_conv_dtype, net_boundary
+from .layers import Conv2d, ResBlock, current_conv_dtype, net_boundary, policy_cast
 
 # fifteen 3x3 convs reach 15 columns; 16 keeps a widened block's width
 # a multiple of 8 when the block's is
@@ -54,11 +54,11 @@ class PostProcess(nn.Module):
         cdt = current_conv_dtype()
 
         def conv(t, m, **kw):
-            w = m.weight if cdt is None else m.weight.to(cdt)
+            w = m.weight if cdt is None else policy_cast(m.weight, cdt)
             return kernel(t, w, m.bias, **kw)
 
         x = x.contiguous()
-        t = conv1 = conv(x if cdt is None else x.to(cdt), self.conv1)
+        t = conv1 = conv(x if cdt is None else policy_cast(x, cdt), self.conv1)
         for blk in self.resBlocks:
             y = conv(t, blk.conv1, act="leaky_relu")
             t = conv(y, blk.conv2, residual=t)
