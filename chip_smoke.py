@@ -27,7 +27,9 @@ exits non-zero:
    hold against the JAX package);
 5. slice: the full-width pMCTF-L (seeded random weights) codes a GOP-4
    of padded-1080p frames through code_gop; the conv3x3 launches of
-   that run are counted, then the GOP is timed, and run once more with
+   that run are counted, PostProcess's and the four-step priors' (282
+   residual convs a pWave call, weights packed per call) apart, then
+   the GOP is timed, and run once more with
    PostProcess on the plain version to compare the reconstructions (the
    f32 exact-warp GOP-16 is timed by phase 20's bench);
 6. (no phase: a GOP's device time by layer and the device's idle share
@@ -43,8 +45,9 @@ exits non-zero:
    decodes. Every decoded band and mv_hat must equal the encoder side bit
    for bit, every stream file's bytes must be the same in every run, and
    the conv3x3 launches are counted (encoder and decoder both run
-   PostProcess). It reports the stream's bits per frame beside the
-   estimate path's, host time in rANS, the device-to-host copies, and
+   PostProcess and the priors). It reports the stream's bits per frame
+   beside the estimate path's, host time in rANS, the device-to-host
+   copies, and
    the device's busy time and idle share in one profiled encode+decode
    GOP and one profiled encode-only GOP.
 
@@ -125,7 +128,8 @@ trainer's default, cli/train_pmctf.py); its profile is the exact warp's.
 22. lossless: full-width pMCTF-L, lossy=False, padded 1080p, q 10, exact
    warp, f32: an estimate GOP-4 and a stream GOP-4 after a warm-up each;
    the frames come back bit for bit, the two encodes write the same
-   bytes, no conv3x3 launch (no PostProcess); frames/s, bits per pixel,
+   bytes, no PostProcess launch (the priors' residual convs on the
+   kernel, counted apart); frames/s, bits per pixel,
    peak memory, the largest band symbol against the coder's clip;
 23. q_batch: a full-width GOP-4 at q 0, 7, 14 and 20 as one batch
    (PMCTFCodec.estimate_one_stage_multi, inverse_mctf_multi) against the
@@ -175,14 +179,20 @@ trainer's default, cli/train_pmctf.py); its profile is the exact warp's.
    stage ms beside the single process's, its exchanges, their bytes and
    share of its wall time, its peak memory and its launches by variant
    (on planes widened by PostProcess's 16-column halo).
-Phases 21-31 run after phase 20. Within the script's time, phases 8 and
+32. priors: a four-step prior's residual block at each subband shape of
+   the f32 1080p cell on its kernel route (two conv3x3 launches and their
+   weight packs from one host call) against the stock cuDNN composition
+   and float64 (1e-4 of the largest output), both timed; one conv, its
+   pack and one cuDNN f32 F.conv2d beside the bound (the LL shapes, which
+   the model keeps on cuDNN, measured as the kernel would run them).
+Phases 21-32 run after phase 20. Within the script's time, phases 8 and
 11 time one encode+decode run (phase 11 profiles its encode+decode GOP
 only), phase 11 one estimate GOP, phase 15 two GOP-4 steps (one with the fast warp), one
 round of the weight-gradient A/B and its counted GOP-16 step, phase 16
 two pWave steps and phase 27 one step after the first.
 
 ``python3 chip_smoke.py --only lossless,q_batch`` runs phases 1-2 and the
-named phases of 21-31 alone (names as their JSON lines give them).
+named phases of 21-32 alone (names as their JSON lines give them).
 ``python3 chip_smoke.py --kernels`` runs phases 1-3 and 18 alone, and
 ``python3 chip_smoke.py --kernels --ab DIR`` then times the variants of
 both kernel phases' main-path shapes and of the training 1->64 input
@@ -207,6 +217,7 @@ its C = 1 kernel, as the C layer counts them) and, last, {"ok": true,
 "device": ...}.
 """
 
+import copy
 import json
 import os
 import re
@@ -469,9 +480,10 @@ def measure_conv(label, n, c, o, hh, ww, act, res, g):
 
 
 def f32_cases():
-    """The eight shapes of the main path, then two shapes the main path
-    does not send to the kernel yet (the four-step priors' 112 and 128
-    channels at the level-1 subband plane), measured for the next slice."""
+    """The eight shapes of PostProcess on the main path, then the four-step
+    priors' 112 and 128 channels at the level-1 subband plane (their
+    residual blocks' shapes, phase 32 has them all; the --ab comparison
+    leaves them out: their sums are split by chunk)."""
     h, w = LUMA
     return [  # (label, n, c, o, h, w, act, residual)
         ("luma 64->64 leaky_relu", 1, 64, 64, h, w, "leaky_relu", False),
@@ -482,9 +494,9 @@ def f32_cases():
         ("chroma 64->64 residual", 2, 64, 64, h // 2, w // 2, None, True),
         ("chroma 1->64", 2, 1, 64, h // 2, w // 2, None, False),
         ("chroma 64->1", 2, 64, 1, h // 2, w // 2, None, False),
-        ("subband 112->112 leaky_relu (off the main path)", 1, 112, 112,
+        ("subband 112->112 leaky_relu (the priors)", 1, 112, 112,
          h // 2, w // 2, "leaky_relu", False),
-        ("subband 128->128 leaky_relu (off the main path)", 1, 128, 128,
+        ("subband 128->128 leaky_relu (the priors)", 1, 128, 128,
          h // 2, w // 2, "leaky_relu", False),
     ]
 
@@ -775,20 +787,40 @@ def postprocess_launches(w, planes, dtype=torch.float32):
 
 def count_from_zero():
     """Set the launch counts to 0 before a path's counted run: the
-    wrapper's by variant, and the C layer's of the direct variants' C = 1
-    kernel."""
+    wrapper's by variant (all, and the priors' per-call packs apart), and
+    the C layer's of the direct variants' C = 1 kernel."""
     from learned_pmctf_tpu_torch.ops import conv3x3 as c3
     c3.conv3x3.launches, c3.conv3x3.by_variant = 0, {}
+    c3.conv3x3.per_call_by_variant = {}
     for dtype in (torch.float32, torch.bfloat16):
         c3.direct_c1_launches(dtype, reset=True)
 
 
-def counted(path):
-    """The launches by variant since count_from_zero. Every launch of a
+def priors_counted():
+    """The four-step priors' launches by variant since count_from_zero
+    (their weights packed per call)."""
+    from learned_pmctf_tpu_torch.ops import conv3x3 as c3
+    return dict(c3.conv3x3.per_call_by_variant)
+
+
+def counted(path, priors=None):
+    """The launches by variant since count_from_zero but the priors': the
+    ones each path's reckoning counts (PostProcess's, and the trainers'
+    input gradients). Where `priors` is given, the priors' launches must
+    number that: every residual conv of a four-step prior on the kernel
+    (0 under the bf16 policy and with a gradient). Every launch of a
     direct variant on a path must have run its C = 1 kernel, as the C
     layer counted them: that kernel is the one the kernels line names."""
     from learned_pmctf_tpu_torch.ops import conv3x3 as c3
     by_variant = dict(c3.conv3x3.by_variant)
+    per_call = priors_counted()
+    for variant, n in per_call.items():
+        by_variant[variant] -= n
+        if not by_variant[variant]:
+            del by_variant[variant]
+    if priors is not None and sum(per_call.values()) != priors:
+        raise AssertionError(f"{path}: {per_call} launches of the priors, expected "
+                             f"{priors}")
     for variant, dtype in (("direct_f32", torch.float32), ("direct_bf16", torch.bfloat16)):
         c1 = c3.direct_c1_launches(dtype)
         if by_variant.get(variant, 0) != c1:
@@ -802,6 +834,7 @@ def timed_code_gop(model, luma, chroma, runs=3):
     counted (a GOP-4 reconstructs 2 planes a frame), then `runs` timed
     runs. Returns the counted run's output and the numbers."""
     from learned_pmctf_tpu_torch.gop import code_gop
+    from learned_pmctf_tpu_torch.models.layers import residual_convs
     from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3
     h, w = LUMA
 
@@ -813,7 +846,9 @@ def timed_code_gop(model, luma, chroma, runs=3):
     run()  # warm-up
     count_from_zero()
     out = run()
-    launches, by_variant = conv3x3.launches, counted("estimate GOP-4")
+    # a pWave call a plane: the priors' convs, PostProcess's 15
+    by_variant = counted("estimate GOP-4", priors=2 * GOP * residual_convs(model.lp_coder))
+    launches, priors = sum(by_variant.values()), priors_counted()
     expected = postprocess_launches(w, 2 * GOP)
     if launches != 15 * 2 * GOP or by_variant != expected:
         raise AssertionError(f"conv3x3 launched {launches} times, by variant "
@@ -828,6 +863,7 @@ def timed_code_gop(model, luma, chroma, runs=3):
     gop_ms = statistics.median(times)
     return out, {"conv3x3_launches": launches,
                  "conv3x3_launches_by_variant": by_variant,
+                 "priors_conv3x3_launches_by_variant": priors,
                  "gop_ms": gop_ms, "gop_ms_runs": times,
                  "frames_per_s": GOP / (gop_ms / 1e3),
                  "peak_mem_bytes": torch.cuda.max_memory_allocated()}
@@ -950,10 +986,13 @@ def stream_runs(model, luma, chroma, est_bits, ll_mode="fourstep"):
     numbers and the launches by variant of one encode+decode run."""
     from learned_pmctf_tpu_torch.codec.video_codec import PMCTFCodec
     from learned_pmctf_tpu_torch.gop import stream_gop
+    from learned_pmctf_tpu_torch.models.layers import residual_convs
     from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3
     h, w = LUMA
-    # a GOP-4 reconstructs 8 planes a side (3 pairs' H bands, the L bands)
+    # a GOP-4 reconstructs 8 planes a side (3 pairs' H bands, the L bands),
+    # each a pWave call that runs the priors
     per_side = postprocess_launches(w, 2 * GOP)
+    priors_per_side = 2 * GOP * residual_convs(model.lp_coder)
     ar = stream_ar_expect(model) if ll_mode == "ar" else None
     row = {"model": "pMCTF-L full width (seeded random weights)", "ll_mode": ll_mode,
            "gop": GOP, "luma": [h, w], "chroma": [2, h // 2, w // 2], "q_index": 10}
@@ -975,7 +1014,7 @@ def stream_runs(model, luma, chroma, est_bits, ll_mode="fourstep"):
         out = stream_gop(codec, luma, chroma, 10.0, d, **kw)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3
-        by_variant = counted(f"stream {name}")
+        by_variant = counted(f"stream {name}", priors=sides * priors_per_side)
         expected = {k: v * sides for k, v in per_side.items()}
         if by_variant != expected:
             raise AssertionError(f"stream {name}: conv3x3 launches by variant "
@@ -994,6 +1033,7 @@ def stream_runs(model, luma, chroma, est_bits, ll_mode="fourstep"):
                  "rans_encode_ms": st.rans_encode_s * 1e3,
                  "rans_decode_ms": st.rans_decode_s * 1e3,
                  "conv3x3_launches": conv3x3.launches,
+                 "priors_conv3x3_launches_by_variant": priors_counted(),
                  "ar_fronts": st.ar_fronts, "ar_decode_ms": st.ar_decode_s * 1e3}
         if ar is not None and not kw and (st.ar_fronts, st.syncs) != (
                 ar["ar_fronts"], ar["syncs"]):
@@ -1345,7 +1385,7 @@ def phase_bench(smi):
     gop4 = code_gop(model, luma, chroma, 10.0)
     torch.cuda.synchronize()
     gop4_ms = (time.perf_counter() - t) * 1e3
-    by_variant = counted("bench GOP-4")
+    by_variant = counted("bench GOP-4", priors=0)
     expected = postprocess_launches(w, 2 * GOP, torch.bfloat16)
     if by_variant != expected:
         raise AssertionError(f"bench GOP-4: conv3x3 launches {by_variant}, "
@@ -1739,7 +1779,7 @@ def timed_train_steps(step, frames, noise, steps, expect):
     t = time.perf_counter()
     log = run()
     first_ms = (time.perf_counter() - t) * 1e3
-    launches, by_variant = conv3x3.launches, counted("train step")
+    launches, by_variant = conv3x3.launches, counted("train step", priors=0)
     packs = packed_weights.packs - packs
     if by_variant != expect:
         raise AssertionError(f"train step: conv3x3 launches by variant {by_variant}, "
@@ -1941,7 +1981,7 @@ def phase_train_pwave(smi):
     count_from_zero()
     run()
     expect = train_launch_expect(1, w, recompute=False)
-    by_variant = counted("train_pwave")
+    by_variant = counted("train_pwave", priors=0)
     post = {k: float(getattr(model.dequantModule, k).weight.grad.abs().max())
             for k in ("conv1", "conv3")}
     if by_variant != expect or not all(v > 0 for v in post.values()):
@@ -2144,11 +2184,12 @@ def phase_lossless(smi):
     1080p, q 10, exact warp, f32: an estimate GOP-4 and a stream GOP-4,
     each after a warm-up. The frames come back bit for bit, the stream's
     bytes are the same in both encodes, and PostProcess never runs (no
-    conv3x3 launch)."""
+    conv3x3 launch but the priors')."""
     from learned_pmctf_tpu_torch.codec.video_codec import PMCTFCodec
     from learned_pmctf_tpu_torch.entropy.coder import SYMBOL_CLIP
     from learned_pmctf_tpu_torch.gop import code_gop, stream_gop
     from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
+    from learned_pmctf_tpu_torch.models.layers import residual_convs
     from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3
     h, w = LUMA
     model = build_pmctf("cuda", seed=0, num_me_stages=4, lossy=False)
@@ -2162,7 +2203,9 @@ def phase_lossless(smi):
     torch.cuda.synchronize()
     est_ms = (time.perf_counter() - t) * 1e3
     est_peak = torch.cuda.max_memory_allocated()
-    launches, by_variant = conv3x3.launches, counted("lossless estimate GOP-4")
+    priors_est = 2 * GOP * residual_convs(model.lp_coder)
+    by_variant = counted("lossless estimate GOP-4", priors=priors_est)
+    launches, priors = sum(by_variant.values()), priors_counted()
     check_lossless(out, luma, chroma, "lossless estimate GOP-4")
     est_bits = sum(v for b in out["bits"].values() for v in b.values())
 
@@ -2182,8 +2225,10 @@ def phase_lossless(smi):
                 streamed = stream_gop(codec, luma, chroma, 10.0, d)
                 torch.cuda.synchronize()
                 stream_ms = (time.perf_counter() - t) * 1e3
-                launches += conv3x3.launches
-                by_variant.update(counted(f"lossless stream {name}"))
+                stream_by_variant = counted(f"lossless stream {name}",
+                                            priors=2 * priors_est)
+                launches += sum(stream_by_variant.values())
+                by_variant.update(stream_by_variant)
                 check_stream(streamed, f"lossless stream {name}")
                 check_lossless(streamed, luma, chroma, f"lossless stream {name}")
                 files.append(stream_files(d))
@@ -2204,7 +2249,8 @@ def phase_lossless(smi):
           "stream_bpp": stream_bits / (GOP * h * w), "stream_peak_mem_bytes": stream_peak,
           "stream_file_bytes": {f: len(b) for f, b in files[1].items()},
           "bytes_identical_across_encodes": True, "decoded_equals_input": True,
-          "lossless_launches": launches, "max_abs_symbol": symbol_peak,
+          "lossless_launches": launches, "priors_conv3x3_launches_by_variant": priors,
+          "max_abs_symbol": symbol_peak,
           "symbol_clip": SYMBOL_CLIP, "symbols_at_clip": symbol_peak >= SYMBOL_CLIP,
           "card": smi})
     del model, luma, chroma, out, streamed
@@ -2257,6 +2303,7 @@ def phase_q_batch(smi):
     from learned_pmctf_tpu_torch.codec.video_codec import PMCTFCodec
     from learned_pmctf_tpu_torch.gop import code_gop
     from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
+    from learned_pmctf_tpu_torch.models.layers import residual_convs
     from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3
     h, w = LUMA
     model = build_pmctf("cuda", seed=0, num_me_stages=4)
@@ -2275,7 +2322,9 @@ def phase_q_batch(smi):
         torch.cuda.synchronize()
         batch_ms = (time.perf_counter() - t) * 1e3
         peak = torch.cuda.max_memory_allocated()
-    launches, by_variant = conv3x3.launches, counted("q-batched GOP-4")
+    # one pWave call a plane for the whole batch
+    by_variant = counted("q-batched GOP-4", priors=2 * GOP * residual_convs(model.lp_coder))
+    launches, priors = sum(by_variant.values()), priors_counted()
     expected = postprocess_launches(w, 2 * GOP)
     if launches != 15 * 2 * GOP or by_variant != expected:
         raise AssertionError(f"q batch: conv3x3 launched {launches} times, by variant "
@@ -2968,7 +3017,64 @@ def check_paths(launches):
             raise AssertionError(f"{path} launched {by_variant}, expected {sorted(want)}")
 
 
-# phases 21-31 by name, for ``--only``
+# the four-step priors' residual convs at the f32 1080p cell's subband
+# shapes: (label, N, C, H, W); luma N = 1, chroma N = 2 (U and V)
+PRIORS_SHAPES = [
+    ("luma level 1", 1, 112, 576, 960), ("luma level 2", 1, 112, 288, 480),
+    ("luma level 3", 1, 112, 144, 240), ("luma level 4", 1, 112, 72, 120),
+    ("chroma level 1", 2, 112, 288, 480), ("chroma level 2", 2, 112, 144, 240),
+    ("chroma level 3", 2, 112, 72, 120), ("chroma level 4", 2, 112, 36, 60),
+    ("luma LL", 1, 128, 72, 120), ("chroma LL", 2, 128, 36, 60)]
+
+
+def phase_priors(smi):
+    """32. priors: a ContextResidual block at each subband shape of the
+    f32 1080p cell, on its kernel route (residual_block3x3: two weight
+    packs for the call and two conv3x3 launches from one host call)
+    against the stock composition (two cuDNN f32 convs, LeakyReLU, the
+    skip) and float64 (1e-4 of the largest output), timed back to back;
+    one conv of each (its pack cached) and one cuDNN f32 conv
+    beside the conv's bound (three TF32 products)."""
+    from learned_pmctf_tpu_torch.models.layers import ContextResidual, leaky_relu
+    from learned_pmctf_tpu_torch.ops import conv3x3 as c3
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for label, n, c, h, w in PRIORS_SHAPES:
+        block = ContextResidual(c).cuda()
+        with torch.no_grad():
+            for conv in (block.conv1, block.conv2):
+                conv.weight.copy_(torch.randn(conv.weight.shape, device="cuda", generator=g)
+                                  / (3 * c ** 0.5))
+                conv.bias.copy_(torch.randn(c, device="cuda", generator=g) * 0.1)
+            x = torch.randn(n, c, h, w, device="cuda", generator=g)
+            stock = lambda: x + block.conv2(leaky_relu(block.conv1(x), 0.2))  # noqa: E731
+            y = block(x)
+            ref = copy.deepcopy(block).double()(x.double())
+            err = float((y.double() - ref).abs().max()) / float(ref.abs().max())
+            err_stock = float((stock().double() - ref).abs().max()) / float(ref.abs().max())
+            del ref
+            if not (block.takes_kernel(x) and err <= 1e-4):
+                raise AssertionError(f"priors {label}: error {err} of the largest output")
+            conv = block.conv2
+            variant = c3.variants_for(c, c, w)[0]
+            row = {"phase": "priors", "shape": label, "x": [n, c, h, w], "variant": variant,
+                   "rel_err_f64": err, "stock_rel_err_f64": err_stock,
+                   "block_ms": cuda_ms_back_to_back(lambda: block(x)),
+                   "stock_block_ms": cuda_ms_back_to_back(stock),
+                   "conv_ms": cuda_ms_back_to_back(lambda: c3.conv3x3(
+                       x, conv.weight, conv.bias, residual=x)),
+                   "library_ms": cuda_ms_back_to_back(lambda: F.conv2d(
+                       x, conv.weight, conv.bias, padding=1)),
+                   **conv_bound(n, c, c, h, w, True, variant)}
+            del y
+        emit(row)
+        rows.append(row)
+        del block, x
+    torch.cuda.empty_cache()
+    return rows
+
+
+# phases 21-32 by name, for ``--only``
 NEW_PHASES = {"lossless_small_reference": lambda smi: phase_lossless_small_reference(),
               "lossless": phase_lossless, "q_batch": phase_q_batch,
               "ca_cli": phase_ca_cli, "extra_modules": phase_extra_modules,
@@ -2977,7 +3083,7 @@ NEW_PHASES = {"lossless_small_reference": lambda smi: phase_lossless_small_refer
               "data_parallel": phase_data_parallel, "shard_q": phase_shard_q,
               "average_flow": phase_average_flow,
               "spatial_small_reference": phase_spatial_small_reference,
-              "spatial": phase_spatial}
+              "spatial": phase_spatial, "priors": phase_priors}
 
 
 def main(argv):
@@ -3020,6 +3126,7 @@ def main(argv):
     phase_average_flow(smi)
     phase_spatial_small_reference(smi)
     spatial_by_variant = phase_spatial(smi)
+    phase_priors(smi)
     # launches by path: the estimate GOP-4 ("launches"), the stream GOP-4,
     # both again with the AR LL coder, a GOP-4 train step (forward,
     # recompute and input gradients), the bench configuration's GOP-4,

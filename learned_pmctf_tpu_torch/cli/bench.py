@@ -107,10 +107,13 @@ def summary(times, frames):
 def estimate_axis(config, gop, h, w, runs, device):
     model = build_pmctf(device, seed=0, **config)
     luma, chroma = bench_frames(gop, h, w, device)
-    conv3x3.launches, conv3x3.by_variant = 0, {}
+    conv3x3.launches, conv3x3.by_variant, conv3x3.per_call_by_variant = 0, {}, {}
     code_gop(model, luma, chroma, Q_INDEX, device=device)  # warm-up, counted
     _sync(device)
-    launches = dict(conv3x3.by_variant)
+    # PostProcess's launches: the priors' residual blocks are counted apart
+    priors = conv3x3.per_call_by_variant
+    launches = {k: n - priors.get(k, 0) for k, n in conv3x3.by_variant.items()
+                if n != priors.get(k, 0)}
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     times = timed_runs(lambda: code_gop(model, luma, chroma, Q_INDEX, device=device),

@@ -2,8 +2,10 @@
 //
 // Replaces the TPU kernel learned_pmctf_tpu/ops/pallas_conv.py:conv3x3_hcw
 // for C % 8 == 0, O % 8 == 0, O <= 128 and W % 4 == 0: the 64->64 convs of
-// PostProcess, and the 112 and 128 channels of the priors' residual
-// blocks. Same function as the other variants:
+// PostProcess, and the 112->112 and 128->128 convs of the four-step
+// priors' residual blocks (models/layers.py:ContextResidual, f32 without a
+// gradient: LeakyReLU fused into the first conv, bias and skip into the
+// second). Same function as the other variants:
 //   y = act(conv3x3(x, w) + b [+ residual]), NCHW, f32 in and out.
 //
 // What bounds it: operations on the tensor cores, three TF32 products a K
@@ -18,15 +20,19 @@
 //   shared memory. wgmma reads TF32 operands from shared memory K-major
 //   only; NCHW activations are pixel-major, so they go through registers,
 //   where the split costs no shared memory. The weights are packed
-//   K-major once by the wrapper (ops/conv3x3.py: pack_weights, layout
+//   K-major by the wrapper (ops/conv3x3.py: pack_weights, layout
 //   "wgmma": [chunk][tap][part][k half][8 outputs][output][4 k], the
-//   core-matrix order of an unswizzled shared-memory descriptor);
+//   core-matrix order of an unswizzled shared-memory descriptor): once
+//   and cached for PostProcess and the trainers, for each call by one
+//   launch of conv3x3_pack.cu for the priors, whose 282 weights a pWave
+//   call would pin 0.48 GiB of packs in two coders;
 // - a block is two consumer warpgroups and one producer warpgroup (which
 //   gives its registers to the consumers: setmaxnreg 40 / 232), persistent
 //   over tiles of 8 rows x 64 pixels (grid = SM count). A warpgroup owns 4
 //   rows: four 64-pixel M tiles, 128 accumulator registers a thread. Above
-//   64 outputs the tile is 4 rows, two M tiles a warpgroup, for the same
-//   128 registers;
+//   64 outputs (the priors' 112 and 128) the tile is 2 rows, one M tile a
+//   warpgroup, and the sums are split by chunk (see Accuracy): 56 or 64
+//   accumulators and as many f32 totals a thread;
 // - the producer thread fills a ring (three stages at 64 outputs, two
 //   above) with TMA: one 3-D box a stage for the activation window of 8
 //   channels (out-of-bounds elements arrive as zeros: the 'same' padding
@@ -51,7 +57,12 @@
 // accumulations of a conv the error against float64 comes to 3.0e-5 at
 // C = 64 and 5.5e-5 at C = 128 for unit-scale outputs (NVIDIA H100 80GB
 // HBM3; an f32 conv errs by 7e-6 to 9e-6 there, one TF32 product by over
-// 1e-3). mma.sync gives the same bits.
+// 1e-3). At 64 outputs mma.sync gives the same bits. Above 64 outputs the
+// outputs feed the priors' quantizers, where an error flips roundings
+// against an f32 conv's: there each chunk of 8 channels (27 products a
+// tile) starts a fresh accumulator (wgmma's scale-d 0), which is added to
+// an f32 total in registers once the chunk's products are done, so the
+// truncation acts on a chunk's partial sum and not on the running total.
 
 #include "conv3x3_hopper.cuh"
 
@@ -75,10 +86,13 @@ constexpr int kBarBytes = 64;              // the ring's mbarriers
 // NOUT: output channels as the weights are packed (64, 112 or 128)
 template <int NOUT>
 struct Cfg {
-  static constexpr int MT = NOUT <= 64 ? 4 : 2;  // M tiles (rows) a warpgroup
+  static constexpr int MT = NOUT <= 64 ? 4 : 1;  // M tiles (rows) a warpgroup
   static constexpr int NACC = NOUT / 2;          // accumulator registers an M tile
+  static constexpr bool BY_CHUNK = NOUT > 64;    // f32 totals of the chunks' sums
   static constexpr int TH = 2 * MT;
-  static constexpr int ROWS = TH + 2;
+  // the window's rows: 4 would put the channel planes 16 banks apart, so
+  // a 2-row tile loads 6 (the last two unread)
+  static constexpr int ROWS = TH + 2 < 6 ? 6 : TH + 2;
   static constexpr int PLANE = kBoxW * ROWS;
   static constexpr int A_BYTES = kCC * PLANE * 4;
   static constexpr int B_BYTES = 9 * NOUT * 16 * 4;
@@ -108,15 +122,15 @@ __device__ __forceinline__ uint64_t b_descriptor(uint32_t addr) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d (64 pixels x NOUT outputs, NOUT / 2 registers a thread) += a (64 x 8,
-// from registers) * B (8 x NOUT, from shared memory)
+// d (64 pixels x NOUT outputs, NOUT / 2 registers a thread) = d * (acc != 0)
+// + a (64 x 8, from registers) * B (8 x NOUT, from shared memory)
 template <int NOUT>
 __device__ __forceinline__ void wgmma_k8(float (&d)[NOUT / 2], const uint32_t (&a)[4],
-                                         uint64_t desc);
+                                         uint64_t desc, int acc);
 
 template <>
 __device__ __forceinline__ void wgmma_k8<64>(float (&d)[32], const uint32_t (&a)[4],
-                                           uint64_t desc) {
+                                           uint64_t desc, int acc) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -129,12 +143,12 @@ __device__ __forceinline__ void wgmma_k8<64>(float (&d)[32], const uint32_t (&a)
       "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
       "}\n"
       : D8(0), D8(8), D8(16), D8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_k8<112>(float (&d)[56], const uint32_t (&a)[4],
-                                           uint64_t desc) {
+                                           uint64_t desc, int acc) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -150,12 +164,12 @@ __device__ __forceinline__ void wgmma_k8<112>(float (&d)[56], const uint32_t (&a
       "{%56, %57, %58, %59}, %60, p, 1, 1;\n"
       "}\n"
       : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_k8<128>(float (&d)[64], const uint32_t (&a)[4],
-                                           uint64_t desc) {
+                                           uint64_t desc, int acc) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -172,7 +186,7 @@ __device__ __forceinline__ void wgmma_k8<128>(float (&d)[64], const uint32_t (&a
       "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
       "}\n"
       : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
 }
 
 #undef D8
@@ -259,10 +273,18 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   const size_t plane = (size_t)H * W;
 
   float acc[K::MT][K::NACC];
+  // the tile's f32 totals of the chunks' sums (BY_CHUNK), else unused
+  float total[K::BY_CHUNK ? K::MT : 1][K::BY_CHUNK ? K::NACC : 1];
 #pragma unroll
   for (int m = 0; m < K::MT; ++m)
 #pragma unroll
     for (int i = 0; i < K::NACC; ++i) acc[m][i] = 0.f;
+  if constexpr (K::BY_CHUNK) {
+#pragma unroll
+    for (int m = 0; m < K::MT; ++m)
+#pragma unroll
+      for (int i = 0; i < K::NACC; ++i) total[m][i] = 0.f;
+  }
 
   int tile = blockIdx.x, chunk = 0, stage = 0;
   uint32_t phase = 0;
@@ -280,16 +302,17 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     // wgmmas of groups i-1 and i are queued, the fragment of group i+1 is
     // loaded and split into the buffer group i-2 has finished with. A
     // group is three products into one M tile's accumulators, in the
-    // fixed order big*big, big*small, small*big.
+    // fixed order big*big, big*small, small*big. BY_CHUNK: an M tile's
+    // first product of the chunk (tap 0) starts its accumulators afresh.
     Frag<K::PLANE> f[3];
     f[0].load(A);
 #pragma unroll
     for (int i = 0; i < K::GROUPS; ++i) {
       const uint64_t d = desc + (i / K::MT) * kTapStep;
       wgmma_fence();
-      wgmma_k8<NOUT>(acc[i % K::MT], f[i % 3].big, d);
-      wgmma_k8<NOUT>(acc[i % K::MT], f[i % 3].big, d + kPartStep);
-      wgmma_k8<NOUT>(acc[i % K::MT], f[i % 3].sml, d);
+      wgmma_k8<NOUT>(acc[i % K::MT], f[i % 3].big, d, !(K::BY_CHUNK && i < K::MT));
+      wgmma_k8<NOUT>(acc[i % K::MT], f[i % 3].big, d + kPartStep, 1);
+      wgmma_k8<NOUT>(acc[i % K::MT], f[i % 3].sml, d, 1);
       wgmma_commit();
       if (i + 1 < K::GROUPS) {
         wgmma_wait<2>();  // group i-2 is done with the buffer loaded next
@@ -299,6 +322,12 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     }
     wgmma_wait<0>();
     mbar_arrive(&empty[stage]);
+    if constexpr (K::BY_CHUNK) {
+#pragma unroll
+      for (int m = 0; m < K::MT; ++m)
+#pragma unroll
+        for (int i = 0; i < K::NACC; ++i) total[m][i] += acc[m][i];
+    }
     if (++stage == K::STAGES) {
       stage = 0;
       phase ^= 1;
@@ -343,9 +372,15 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
             for (int e = 0; e < 2; ++e)
 #pragma unroll
-              for (int h = 0; h < 2; ++h)
-                ebuf[(8 * j + 2 * t + e) * kEPitch + 16 * w4 + g + 8 * h] =
-                    acc[m][4 * (8 * half + j) + 2 * h + e];
+              for (int h = 0; h < 2; ++h) {
+                const int r = 4 * (8 * half + j) + 2 * h + e;
+                float v;
+                if constexpr (K::BY_CHUNK)
+                  v = total[m][r];
+                else
+                  v = acc[m][r];
+                ebuf[(8 * j + 2 * t + e) * kEPitch + 16 * w4 + g + 8 * h] = v;
+              }
           }
         asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 #pragma unroll
@@ -371,7 +406,12 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
       for (int m = 0; m < K::MT; ++m)
 #pragma unroll
-        for (int i = 0; i < K::NACC; ++i) acc[m][i] = 0.f;
+        for (int i = 0; i < K::NACC; ++i) {
+          if constexpr (K::BY_CHUNK)
+            total[m][i] = 0.f;
+          else
+            acc[m][i] = 0.f;
+        }
       chunk = 0;
       tile += gridDim.x;
     }

@@ -35,6 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .. import telemetry
+from ..ops.conv3x3 import residual_block3x3, takes_block
 from ..ops.masks import causal_conv_mask
 
 # flax's truncated_normal divides by the std of a unit normal cut at +-2
@@ -47,6 +48,9 @@ _FORCE_F32 = [False]
 # the policy's telemetry counters (telemetry.py)
 CASTS = "policy casts"
 CAST_BYTES = "policy cast bytes"
+# the four-step priors' residual convs by route (ContextResidual)
+KERNEL_CONVS = "priors kernel convs"
+STOCK_CONVS = "priors stock convs"
 
 
 @contextlib.contextmanager
@@ -262,8 +266,52 @@ class ResBlock(nn.Module):
         return x + self.conv2(leaky_relu(self.conv1(x), 0.2))
 
 
-# the fusion models' context branches use the same block shape
-ContextResidual = ResBlock
+class ContextResidual(nn.Module):
+    """The four-step priors' residual block, ``ResBlock``'s function and
+    state_dict keys: x + conv2(lrelu(conv1(x))).
+
+    On CUDA in f32 without a gradient (no policy dtype, nothing that
+    requires grad under grad mode), where ``wgmma_3xtf32`` takes x
+    (``ops/conv3x3.takes_block``: 8-128 channels in multiples of 8, rows
+    of a multiple of 4 pixels, contiguous and aligned), it is two launches
+    of that kernel from one host call (``ops/conv3x3.residual_block3x3``):
+    LeakyReLU fused into the first, bias and skip into the second, whose
+    epilogue adds (conv + b) + x in the composition's order; the weights
+    are packed for the call, since 282 cached packs a pWave call would pin
+    0.48 GiB in two coders. Everywhere else (the CPU, the bf16 policy,
+    training, rows of the width-sharded stages) the composition of
+    ``ResBlock``. Telemetry counts the convs of each route (KERNEL_CONVS,
+    STOCK_CONVS)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv1 = Conv2d(channels, channels, 3)
+        self.conv2 = Conv2d(channels, channels, 3)
+
+    def takes_kernel(self, x) -> bool:
+        """Whether this call runs ``residual_block3x3``: what the call can
+        observe."""
+        if x.device.type != "cuda" or self.conv1.policy_dtype() is not None:
+            return False
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or any(p.requires_grad for p in self.parameters())):
+            return False
+        return takes_block(x)
+
+    def forward(self, x):
+        if self.takes_kernel(x):
+            telemetry.count(KERNEL_CONVS, 2)
+            c1, c2 = self.conv1, self.conv2
+            return residual_block3x3(x, c1.weight, c1.bias, c2.weight, c2.bias)
+        telemetry.count(STOCK_CONVS, 2)
+        return x + self.conv2(leaky_relu(self.conv1(x), 0.2))
+
+
+def residual_convs(module: nn.Module) -> int:
+    """The 3x3 convs of the ContextResidual blocks in ``module``, each run
+    once: what a call of a pWave coder counts under KERNEL_CONVS and
+    STOCK_CONVS together (282 in pMCTF-L's, at full width)."""
+    return 2 * sum(isinstance(m, ContextResidual) for m in module.modules())
 
 
 def SubpelConv(in_ch: int, out_ch: int, r: int = 2, kernel: int = 1):

@@ -8,17 +8,27 @@ instead of the TPU's (N, H, C, W) lane layout, and for any H, W, C, O
 The C side picks one of four variants from the shape (``variants_for``):
 
 - ``wgmma_3xtf32`` (C % 8 == 0, O % 8 == 0, O <= 128, W % 4 == 0; the
-  64->64 convs of PostProcess): bound by operations on the tensor cores,
+  64->64 convs of PostProcess, and the 112->112 and 128->128 convs of the
+  four-step priors' residual blocks, ``models/layers.py:ContextResidual``,
+  in f32 without a gradient): bound by operations on the tensor cores,
   495 TFLOP/s dense in TF32 on an H100 SXM at 700 W against the 67 of the
   f32 cores. An implicit GEMM on ``wgmma`` with the pixels from registers
   and the weights from shared memory. f32 parity is kept by splitting every
   operand in two TF32 numbers (``tf32_split``) and summing three products
-  per K step in the f32 accumulator. A producer thread streams activation
-  windows (one TMA box a stage; out-of-bounds elements arrive as zeros,
-  which is the padding) and packed weights through a ring in shared memory;
-  two consumer warpgroups split the activations in registers. The weights
+  per K step in the f32 accumulator; above 64 outputs (the priors, whose
+  outputs feed the quantizers) each chunk of 8 channels is summed in fresh
+  accumulators and added to f32 totals, which keeps the tensor cores'
+  truncating adds to a chunk's partial sum (csrc/conv3x3_wgmma.cu). A
+  producer thread streams activation windows (one TMA box a stage;
+  out-of-bounds elements arrive as zeros, which is the padding) and
+  packed weights through a ring in shared memory; two consumer
+  warpgroups split the activations in registers. The weights
   are split and packed once per weight tensor here (``pack_weights``) and
-  cached on the tensor (``packed_weights``);
+  cached on the tensor (``packed_weights``), or, in the priors' residual
+  blocks (``residual_block3x3``: 282 weights a pWave call, whose packs
+  would pin 0.48 GiB in two coders), packed anew for each call by a kernel
+  (csrc/conv3x3_pack.cu, bit for bit as ``pack_weights``) into a tensor
+  freed after the launches;
 - ``mma_sync_3xtf32`` (the same channel counts at any width): the same
   product on ``mma.sync``, which reaches about half the tensor cores'
   rate, with a ``cp.async`` ring;
@@ -92,7 +102,7 @@ CSRC = os.path.join(_PKG, "csrc")
 SOURCES = tuple(os.path.join(CSRC, name) for name in
                 ("conv3x3.cu", "conv3x3_mma.cu", "conv3x3_wgmma.cu",
                  "conv3x3_wgmma_bf16.cu", "conv3x3_head.cu",
-                 "conv3x3_direct_c1.cu"))
+                 "conv3x3_direct_c1.cu", "conv3x3_pack.cu"))
 HEADERS = tuple(os.path.join(CSRC, name) for name in
                 ("conv3x3_common.cuh", "conv3x3_hopper.cuh"))
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -183,6 +193,9 @@ def _load():
                 fn.restype = ctypes.c_int
             lib.conv3x3_direct_c1_launches.argtypes = [ctypes.c_int] * 2
             lib.conv3x3_direct_c1_launches.restype = ctypes.c_longlong
+            lib.conv3x3_residual_block_f32.argtypes = (
+                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            lib.conv3x3_residual_block_f32.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -295,7 +308,6 @@ def packed_weights(w, layout, o_pad=None):
 
 packed_weights.packs = 0
 
-
 def conv3x3_plain(x, w, b, act=None, residual=None):
     """Plain PyTorch version: F.conv2d plus the same f32 epilogue. For
     bf16 operands: upcast, all of it in f32, one rounding to bf16 at the
@@ -385,10 +397,16 @@ def _launch(x, w, b, act, residual, variant):
             y.data_ptr(), n, c, h, wd, o, ACTS[act], VARIANTS[name], stream)
     if rc != 0:
         raise RuntimeError(f"conv3x3 kernel {name} launch failed: CUDA error {rc}")
-    with _lock:  # the codec launches from several threads
-        conv3x3.launches += 1
-        conv3x3.by_variant[name] = conv3x3.by_variant.get(name, 0) + 1
+    _count(name, 1)
     return y
+
+
+def _count(name, n, per_call=False):
+    with _lock:  # the codec launches from several threads
+        conv3x3.launches += n
+        conv3x3.by_variant[name] = conv3x3.by_variant.get(name, 0) + n
+        if per_call:
+            conv3x3.per_call_by_variant[name] = conv3x3.per_call_by_variant.get(name, 0) + n
 
 
 def _forward(x, w, b, act, residual):
@@ -494,8 +512,60 @@ def conv3x3(x, w, b, act=None, residual=None):
     return _forward(x, w, b, act, residual)
 
 
+# every launch, by variant; residual_block3x3's apart as well
 conv3x3.launches = 0
 conv3x3.by_variant = {}
+conv3x3.per_call_by_variant = {}
+
+
+def residual_block3x3(x, w1, b1, w2, b2):
+    """x + conv3x3(LeakyReLU(conv3x3(x, w1) + b1), w2) + b2, the four-step
+    priors' residual block (models/layers.py:ContextResidual), forward
+    only, in f32: C -> C channels, the sum (conv + b2) + x in that order.
+
+    On CUDA one call into the C layer packs both weights for this call
+    alone (csrc/conv3x3_pack.cu, bit for bit as ``pack_weights(w,
+    "wgmma")``; the packs are freed after the launches) and launches both
+    convs on ``wgmma_3xtf32``, which must take the shape (``takes_block``):
+    the host's cost of a block is one call, not four. The launches count
+    in ``conv3x3.per_call_by_variant`` too. On the CPU the plain versions,
+    through ``conv3x3``."""
+    if x.device.type == "cpu":
+        t = conv3x3(x, w1, b1, act="leaky_relu")
+        return conv3x3(t, w2, b2, residual=x)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2)):
+        raise RuntimeError("residual_block3x3 has no gradient: the stock path has")
+    _check(x, w1, b1, "leaky_relu", None)
+    _check(x, w2, b2, None, x)  # C -> C: x is conv2's residual
+    if w1.shape[0] != x.shape[1]:
+        raise ValueError(f"w1 {tuple(w1.shape)} is no C -> C conv of x {tuple(x.shape)}")
+    if not takes_block(x):
+        raise ValueError(f"wgmma_3xtf32 does not take a {tuple(x.shape)} {x.dtype} block")
+    n, c, h, wd = x.shape
+    lib = _load()
+    packs = torch.empty(2 * 2 * 9 * c * lib.conv3x3_padded_o(c), dtype=torch.float32,
+                        device=x.device)
+    t, y = torch.empty_like(x), torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.conv3x3_residual_block_f32(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            packs.data_ptr(), t.data_ptr(), y.data_ptr(), n, c, h, wd, stream)
+    if rc != 0:
+        raise RuntimeError(f"conv3x3 residual block launch failed: CUDA error {rc}")
+    _count("wgmma_3xtf32", 2, per_call=True)
+    return y
+
+
+def takes_block(x) -> bool:
+    """Whether ``residual_block3x3`` takes x on the card: f32, contiguous,
+    16-byte aligned, C -> C channels and a width that ``wgmma_3xtf32``
+    takes (C a multiple of 8 up to 128, W a multiple of 4). Readable
+    without the C layer, so the CPU can ask it too."""
+    if x.dim() != 4 or x.dtype != torch.float32 or not x.is_contiguous():
+        return False
+    c, wd = x.shape[1], x.shape[3]
+    return x.data_ptr() % 16 == 0 and c % 8 == 0 and c <= 128 and wd % 4 == 0
 
 
 def variants_for(c: int, o: int, width: int, dtype=torch.float32) -> list:

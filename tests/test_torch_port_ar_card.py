@@ -16,6 +16,7 @@ import torch
 
 from learned_pmctf_tpu_torch.codec.video_codec import PMCTFCodec
 from learned_pmctf_tpu_torch.gop import stream_gop
+from learned_pmctf_tpu_torch.models.layers import residual_convs
 from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
 from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3
 
@@ -47,11 +48,14 @@ def test_ar_stream_gop4_round_trip_on_card(tmp_path):
         for name in ("first", "again"):
             d = tmp_path / name
             d.mkdir()
-            conv3x3.launches = 0
+            conv3x3.launches, conv3x3.per_call_by_variant = 0, {}
             codec.stats.reset()
             out = stream_gop(codec, luma, chroma, 10.0, str(d), psize=64)
             torch.cuda.synchronize()
-            assert conv3x3.launches == 2 * 8 * 15, (name, conv3x3.launches)
+            # PostProcess apart from the priors of the four-step bands
+            priors = sum(conv3x3.per_call_by_variant.values())
+            assert priors == 2 * 8 * residual_convs(model.lp_coder), (name, priors)
+            assert conv3x3.launches - priors == 2 * 8 * 15, (name, conv3x3.launches)
             # LL planes of 16x16 (46 fronts) and 2x8x8 (22 fronts), 4 each
             assert codec.stats.ar_fronts == 4 * 46 + 4 * 22
             assert set(out["max_err"].values()) == {0.0}, (name, out["max_err"])

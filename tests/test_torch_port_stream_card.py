@@ -18,6 +18,7 @@ import torch
 
 from learned_pmctf_tpu_torch.codec.video_codec import PMCTFCodec
 from learned_pmctf_tpu_torch.gop import stream_gop
+from learned_pmctf_tpu_torch.models.layers import residual_convs
 from learned_pmctf_tpu_torch.models.pmctf import build_pmctf
 from learned_pmctf_tpu_torch.ops.conv3x3 import conv3x3
 
@@ -54,12 +55,16 @@ def test_stream_gop4_round_trip_on_card(tmp_path):
                          ("async", {"decode_async": True})):
             d = tmp_path / name
             d.mkdir()
-            conv3x3.launches = 0
+            conv3x3.launches, conv3x3.per_call_by_variant = 0, {}
             out = stream_gop(codec, luma, chroma, 10.0, str(d), psize=64, **kw)
             torch.cuda.synchronize()
             # 8 reconstructions a side (3 pairs' H bands, the L bands),
-            # 15 convs each; the decodes launch from worker threads
-            assert conv3x3.launches == 2 * 8 * 15, (name, conv3x3.launches)
+            # 15 PostProcess convs each, and 8 pWave calls a side, each
+            # running every residual conv of the priors on the kernel; the
+            # decodes launch from worker threads
+            priors = sum(conv3x3.per_call_by_variant.values())
+            assert priors == 2 * 8 * residual_convs(model.lp_coder), (name, priors)
+            assert conv3x3.launches - priors == 2 * 8 * 15, (name, conv3x3.launches)
             assert len(out["max_err"]) == 3
             assert set(out["max_err"].values()) == {0.0}, (name, out["max_err"])
             runs[name] = out, _files(d)
