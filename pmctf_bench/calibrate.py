@@ -3,15 +3,16 @@
     python3 pmctf_bench/calibrate.py --workload <cell> --seeds 11 12 13 [--control] [--fault NAME]
 
 For each seed, in one process, one run of the cell as ``harness.run``
-makes it (set-up, warm-up, a window of one GOP, the plain reference on
-the GOP the run samples), and with ``--control`` the reference put in
+makes it (set-up, warm-up, a window of one input, the plain reference on
+the input the run samples), and with ``--control`` the reference put in
 the port's place at the precision one step below the configuration's
 (the config's ``control``: TF32 under f32, fp8 under bf16) on the same
-frames. With ``--fault`` the run's timed path is broken underneath
-(``faults.py``). Prints one JSON line a seed with every number of
-``check.py`` for the port (the lower reading, or a fault's) and the
-control (the upper), and the seconds the run and the control took. The
-benchmark's own runs never run it; pmctf_bench/tests/ keeps it as a test.
+input. With ``--fault`` the run's timed path is broken underneath by one
+of the faults of the cell's family (``faults.py``). Prints one JSON line
+a seed with every number of ``check.py`` for the port (the lower
+reading, or a fault's) and the control (the upper), and the seconds the
+run and the control took. The benchmark's own runs never run it;
+pmctf_bench/tests/ keeps it as a test.
 """
 
 from __future__ import annotations
@@ -28,30 +29,30 @@ if __package__ in (None, ""):
 import torch  # noqa: E402
 
 from pmctf_bench import faults  # noqa: E402
-from pmctf_bench.cells import Cell, load_cell  # noqa: E402
+from pmctf_bench.cells import Cell, load_cell, load_family  # noqa: E402
 from pmctf_bench.check import NUMBERS, gaps  # noqa: E402
 from pmctf_bench.harness import _sync, run  # noqa: E402
-from pmctf_bench.reference.gop import code_gop as reference_gop  # noqa: E402
 from pmctf_bench.reference.model import Numerics  # noqa: E402
 
 
 def readings(cell: Cell, seed: int, device, control: bool, fault=None) -> dict:
     """The port's numbers (and the control's) against the reference on
-    the GOP a run of `seed` samples, the port broken by `fault` if given."""
+    the input a run of `seed` samples, the port broken by `fault` if given."""
     line = {"cell": cell.name, "seed": seed, "fault": fault}
+    family = load_family(cell.family, cell.bench_dir)
 
-    def after_check(kept, expect, reference, gop):
+    def after_check(kept, expect, reference, sample):
         line["port"] = {k: max(gaps(o, expect)[k] for o in kept) for k in NUMBERS}
         if control:
-            reference.attach(Numerics(cell.config["control"]))
+            family.attach(reference, Numerics(cell.config["control"]))
             t = time.perf_counter()
-            low = reference_gop(reference, *gop, cell.mix["q_index"])
+            low = family.reference_output(reference, sample, cell.mix)
             _sync(device)
             line.update(control=gaps(low, expect), control_precision=cell.config["control"],
                         control_s=time.perf_counter() - t)
 
     t = time.perf_counter()
-    with faults.planted(fault) as break_port:
+    with faults.planted(fault, family) as break_port:
         result = run(cell, seed, 0.0, False, device, t, break_port=break_port,
                      after_check=after_check)
     line.update(correct=result["correct"], run_s=time.perf_counter() - t)
@@ -63,7 +64,7 @@ def main(argv=None):
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", type=int, nargs="+", required=True)
     p.add_argument("--control", action="store_true")
-    p.add_argument("--fault", choices=faults.NAMES)
+    p.add_argument("--fault", help="one of the faults of the cell's family (faults.py)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("calibration needs a CUDA card", file=sys.stderr)

@@ -18,6 +18,12 @@ import torch
 import torch.nn.functional as F
 
 
+def input_seed(seed: int, d: int) -> int:
+    """The seed of the run's distinct input d (a GOP, a picture), and with
+    d the number of inputs, the seed that picks the input checked."""
+    return (seed * 1_000_003 + 7919 * (d + 1)) % (2 ** 63)
+
+
 def gop_motion(seed: int, max_motion: int) -> Tuple[int, int]:
     """(dy, dx), a GOP's global motion in pixels a frame."""
     g = torch.Generator().manual_seed(seed)

@@ -1,17 +1,19 @@
-"""One run of one cell: set-up, the measured window, the traced GOP, the
-check against the plain reference, and the result line.
+"""One run of one cell: set-up, the measured window, the traced input,
+the check against the plain reference, and the result line.
 
-The port (``learned_pmctf_tpu_torch``) is the system under test; of it
-the harness takes the model, its GOP entry points, the stream codec and
-its counters, and nothing else. Weights and frames are the harness's own
-(weights.py, frames.py), drawn from ``--seed``.
+The port (``learned_pmctf_tpu_torch``) is the system under test. The
+cell's family (families/<family>.py, cells.py) supplies the port's model
+and the plain reference, the run's inputs and the layer table; its path
+(paths/<path>.py) runs the port's entry point on one input. Weights and
+inputs are the harness's own (weights.py, the family's generator), drawn
+from ``--seed``.
 
-Set-up runs from process start to one warm-up GOP of the cell's shapes.
-The window then codes GOPs back to back, cycling through the run's
-distinct GOPs, starting GOPs while ``--seconds`` have not passed; the
-last runs to its end and counts. A rate is all frames of all GOPs over
-the time from the first GOP's start to the last GOP's end. With
-``--trace 1`` one more GOP runs under the profiler after the window.
+Set-up runs from process start to one warm-up run of the cell's shapes.
+The window then runs the inputs back to back, cycling through the run's
+distinct inputs, starting one while ``--seconds`` have not passed; the
+last runs to its end and counts. A rate is all frames of all inputs over
+the time from the first input's start to the last one's end. With
+``--trace 1`` one more input runs under the profiler after the window.
 """
 
 from __future__ import annotations
@@ -21,28 +23,21 @@ import gc
 import json
 import subprocess
 import sys
-import tempfile
 import time
 from typing import Callable, Dict, List, Optional
 
 import torch
 
-from . import frames as frame_gen
 from . import layers, trace
-from .cells import Cell, load_cell, metric_reader
+from .cells import Cell, load_cell, load_family, load_path, metric_reader
 from .check import compare
-from .reference.gop import code_gop as reference_gop
-from .reference.model import PMCTF as ReferencePMCTF, Numerics
+from .frames import input_seed
+from .reference.model import Numerics
 from .weights import make_state
 from .work import Work
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "learned_pmctf_tpu")
 GIB = float(2 ** 30)
-
-
-def gop_seed(seed: int, d: int) -> int:
-    """The seed of the run's distinct GOP d."""
-    return (seed * 1_000_003 + 7919 * (d + 1)) % (2 ** 63)
 
 
 def forbidden_modules() -> List[str]:
@@ -66,84 +61,14 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def build_port(config: Dict, state: Dict, device):
-    """The port's PMCTF on `device` with the run's weights."""
-    from learned_pmctf_tpu_torch.models.pmctf import PMCTF
+def _loaded(build: Callable[[], torch.nn.Module], state: Dict, device) -> torch.nn.Module:
+    """The module `build` makes on the meta device, on `device` with the
+    run's weights."""
     with torch.device("meta"):
-        model = PMCTF(**config["model"])
+        model = build()
     model = model.to_empty(device=device)
     model.load_state_dict(state)
     return model.eval()
-
-
-def build_reference(config: Dict, state: Dict, device, numerics: Numerics):
-    with torch.device("meta"):
-        ref = ReferencePMCTF(**config["model"])
-    ref = ref.to_empty(device=device)
-    ref.load_state_dict(state)
-    return ref.attach(numerics).eval()
-
-
-class EstimatePath:
-    """GOPs through ``gop.code_gop``: rates estimated on the device."""
-
-    spans = ("forward_one_stage", "inverse_mctf")
-
-    def __init__(self, model, mix, device):
-        from learned_pmctf_tpu_torch.gop import code_gop
-        self.model, self.mix, self.device, self._code = model, mix, device, code_gop
-        self.span_target = model
-
-    def run(self, luma, chroma) -> Dict:
-        return self._code(self.model, luma, chroma, self.mix["q_index"], device=self.device)
-
-    def counters(self) -> Dict:
-        return {}
-
-    def reset_counters(self):
-        pass
-
-    def close(self):
-        pass
-
-
-class StreamPath:
-    """GOPs written to .bin streams through ``PMCTFCodec`` and decoded
-    from them by ``gop.stream_gop``, which holds every decoded plane equal
-    to the encoder side."""
-
-    spans = ("encode_one_stage", "inverse_mctf")
-
-    def __init__(self, model, mix, device):
-        from learned_pmctf_tpu_torch.codec.video_codec import PMCTFCodec
-        from learned_pmctf_tpu_torch.gop import stream_gop
-        self.mix, self.device, self._code = mix, device, stream_gop
-        self.codec = PMCTFCodec(model, device=device)
-        self.codec.update()
-        self.span_target = self.codec
-        self._dir = tempfile.TemporaryDirectory(prefix="pmctf_bench_")
-
-    def run(self, luma, chroma) -> Dict:
-        out = self._code(self.codec, luma, chroma, self.mix["q_index"], self._dir.name,
-                         device=self.device)
-        bad = {k: v for k, v in out["max_err"].items() if v != 0.0}
-        if len(out["max_err"]) != len(luma) - 1 or bad:
-            raise RuntimeError(f"decoded planes differ from the encoder side: {out['max_err']}")
-        return out
-
-    def counters(self) -> Dict:
-        s = self.codec.stats
-        return {"syncs": s.syncs, "rans_s": s.rans_encode_s + s.rans_decode_s}
-
-    def reset_counters(self):
-        self.codec.stats.reset()
-
-    def close(self):
-        self.codec.close()
-        self._dir.cleanup()
-
-
-PATHS = {"estimate": EstimatePath, "stream": StreamPath}
 
 
 def measure_window(step: Callable[[int], None], seconds: float,
@@ -164,29 +89,29 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device: torch.devic
         after_check: Optional[Callable] = None) -> Dict:
     """One run of `cell`. `break_port(model)` plants a fault in the port
     (the tests' broken runs); `t0` is the process's start (perf_counter).
-    `after_check(kept=, expect=, reference=, gop=)`, if given, is called
-    once the check is made, with the port's outputs checked, the
-    reference's, the reference model and the frames of the sampled GOP
-    (calibrate.py's readings)."""
+    `after_check(kept=, expect=, reference=, sample=)`, if given, is
+    called once the check is made, with the port's outputs checked, the
+    reference's, the reference model and the sampled input (calibrate.py's
+    readings)."""
     mix, cfg = cell.mix, cell.config
-    n, h, w, distinct = mix["gop"], mix["height"], mix["width"], mix["distinct_gops"]
-    gen = dict(mix["frames"])
-    generator = getattr(frame_gen, gen.pop("generator"))
+    family = load_family(cell.family, cell.bench_dir)
+    per_input = family.frames(mix)
 
     marks = {"start": t0, "imported": time.perf_counter()}
     with torch.device("meta"):
-        shapes = ReferencePMCTF(**cfg["model"])
+        shapes = family.reference_model(cfg)
     state = make_state(shapes, seed, device)
-    model = build_port(cfg, state, device)
+    model = _loaded(lambda: family.port_model(cfg), state, device)
     if break_port is not None:
         break_port(model)
-    gops = [generator(n, h, w, device, gop_seed(seed, d), **gen) for d in range(distinct)]
+    inputs = family.inputs(mix, seed, device)
+    distinct = len(inputs)
     _sync(device)
     marks["weights_frames"] = time.perf_counter()
-    path = PATHS[mix["path"]](model, mix, device)
+    path = load_path(cell.path, cell.bench_dir).build(model, mix, device)
     marks["path"] = time.perf_counter()
     try:
-        path.run(*gops[0])                               # warm-up: every shape
+        path.run(*inputs[0])                             # warm-up: every shape
         _sync(device)
         marks["warm_up"] = time.perf_counter()
         setup_s = marks["warm_up"] - t0
@@ -197,26 +122,27 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device: torch.devic
 
         def step(i):
             t = time.perf_counter()
-            last[i % distinct] = path.run(*gops[i % distinct])
+            last[i % distinct] = path.run(*inputs[i % distinct])
             _sync(device)
             gop_s.append(time.perf_counter() - t)
         coded, window_s = measure_window(step, seconds)
         peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
         counters = path.counters()
-        # the output checked: the last GOP of one distinct GOP the window
-        # coded, drawn from the seed
-        sample = gop_seed(seed, distinct) % min(distinct, coded)
+        # the output checked: the last run of one distinct input the
+        # window ran, drawn from the seed
+        sample = input_seed(seed, distinct) % min(distinct, coded)
         kept = [last.pop(sample)]
         last.clear()
         traced_rec = None
         if traced:
-            traced_rec, out = traced_gop(path, model, gops[sample], device)
+            traced_rec, out = traced_input(path, model, inputs[sample], device, family,
+                                           per_input)
             kept.append(out)
             del out
     finally:
         path.close()
     del path, model
-    gops = [g if i == sample else None for i, g in enumerate(gops)]
+    inputs = [x if i == sample else None for i, x in enumerate(inputs)]
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -224,16 +150,16 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device: torch.devic
     # the plain reference, after the window and with the port's state freed
     work = Work(cfg["precision"])
     numerics = Numerics("f32", work)
-    ref = build_reference(cfg, state, device, numerics)
+    ref = family.attach(_loaded(lambda: family.reference_model(cfg), state, device), numerics)
     with layers.hooked(ref, lambda layer: numerics.layer.append(layer),
-                       lambda _: numerics.layer.pop()):
-        expect = reference_gop(ref, *gops[sample], mix["q_index"])
+                       lambda _: numerics.layer.pop(), family):
+        expect = family.reference_output(ref, inputs[sample], mix)
     checks = compare(kept, expect, cell.limits)
     failed = sum(not c["ok"] for c in checks["per_output"])
     if after_check is not None:
-        after_check(kept=kept, expect=expect, reference=ref, gop=gops[sample])
+        after_check(kept=kept, expect=expect, reference=ref, sample=inputs[sample])
 
-    frames = coded * n
+    frames = coded * per_input
     e2e = {"setup_s": setup_s, "peak_mem_gib": peak / GIB, mix["rate_metric"]: frames / window_s}
     metrics = {}
     if not traced:
@@ -246,13 +172,13 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device: torch.devic
                                 zip(list(marks), list(marks)[1:])},
               "gop_s": gop_s}
     if traced:
-        records = {"path": mix["path"], "gop": n,
+        records = {"path": cell.path, "gop": per_input,
                    "window": {"seconds": window_s, "gops": coded, "frames": frames,
                               "counters": counters},
                    "work": {**work.summary(), "ops_s": work.ops_time_s()},
                    "traced": traced_rec}
         for m in cell.per_layer:
-            value = metric_reader(m["name"])(records)
+            value = metric_reader(m["name"], cell.bench_dir)(records)
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
         result["device"].update(busy_s=traced_rec["busy_s"], window_s=traced_rec["window_s"])
@@ -264,30 +190,31 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device: torch.devic
     return result
 
 
-def traced_gop(path, model, gop, device):
-    """One GOP under the profiler, with spans; its summaries and output."""
+def traced_input(path, model, inp, device, family, per_input: int):
+    """One input under the profiler, with spans; its summaries and output."""
     from torch.profiler import ProfilerActivity, profile, record_function
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     undo = trace.span_methods(path.span_target, path.spans, record_function)
     try:
-        with trace.layer_spans(model, record_function), profile(activities=activities) as prof:
+        with trace.layer_spans(model, record_function, family), \
+                profile(activities=activities) as prof:
             with record_function("traced gop"):
-                out = path.run(*gop)
+                out = path.run(*inp)
                 _sync(device)
     finally:
         undo()
     events = prof.profiler.kineto_results.events()
     rec = trace.reduce(events, trace.window_of(events, "traced gop"),
-                       {layer for _, layer in layers.layer_modules(model)})
-    rec["frames_traced"] = len(gop[0])
+                       {layer for _, layer in layers.layer_modules(model, family)})
+    rec["frames_traced"] = per_input
     return rec, out
 
 
 def main(argv=None, t0: Optional[float] = None) -> int:
     t0 = time.perf_counter() if t0 is None else t0
-    p = argparse.ArgumentParser(description="pMCTF-L benchmark of learned_pmctf_tpu_torch")
+    p = argparse.ArgumentParser(description="the benchmark of learned_pmctf_tpu_torch")
     p.add_argument("--workload", required=True)
     p.add_argument("--seed", type=int, required=True)
     p.add_argument("--seconds", type=float, required=True)

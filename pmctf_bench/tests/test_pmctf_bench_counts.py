@@ -8,6 +8,7 @@ import torch.nn.functional as F
 from conftest import TINY_MODEL
 
 from pmctf_bench import layers
+from pmctf_bench.cells import load_family
 from pmctf_bench.frames import gop_motion, smooth_moving
 from pmctf_bench.harness import measure_window
 from pmctf_bench.reference.model import PMCTF, Numerics, PostProcess
@@ -92,7 +93,8 @@ def test_layers_count_under_their_names():
         out = []
         with layers.hooked(ref, num.layer.append, lambda _: num.layer.pop()):
             out.append(ref.hp_coder(torch.zeros(1, 1, 64, 64), 10.0))
-    assert set(work.ops) == {layers.LIFTING, layers.LSTM, layers.PRIORS, layers.POSTPROCESS}
+    pmctf_l = load_family("pmctf_l")
+    assert set(work.ops) == {pmctf_l.LIFTING, pmctf_l.LSTM, pmctf_l.PRIORS, pmctf_l.POSTPROCESS}
     assert num.layer == ["other"]
 
 

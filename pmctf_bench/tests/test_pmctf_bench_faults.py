@@ -11,7 +11,7 @@ import torch
 from conftest import TINY_MODEL
 
 from pmctf_bench import faults
-from pmctf_bench.cells import load_cell
+from pmctf_bench.cells import load_cell, load_family
 from pmctf_bench.harness import run
 
 CELLS = ["pmctf_l_f32.estimate_gop16_1080p", "pmctf_l_f32.stream_gop4_1080p"]
@@ -61,7 +61,7 @@ def test_faults_are_undone():
     from learned_pmctf_tpu_torch.codec import image_codec, video_codec
     before = (image_codec.encode_image, video_codec.encode_p, gop.disable_tf32,
               torch.backends.cudnn.allow_tf32)
-    for name in faults.GLOBAL_FAULTS:
+    for name in load_family("pmctf_l").GLOBAL_FAULTS:
         with faults.planted(name):
             pass
     assert before == (image_codec.encode_image, video_codec.encode_p, gop.disable_tf32,

@@ -10,9 +10,11 @@ import shutil
 import subprocess
 import sys
 
+import pytest
 from conftest import ROOT
 
-from pmctf_bench.cells import BENCH_DIR, load_cell, metric_reader, reader_path
+from pmctf_bench.cells import (BENCH_DIR, load_cell, load_family, load_path, metric_reader,
+                               reader_path)
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 FORBIDDEN = {"jax", "jaxlib", "flax", "learned_pmctf_tpu"}
@@ -50,8 +52,9 @@ def test_benchmark_json_shape():
 
 
 def test_new_files_are_found_without_editing(tmp_path):
-    """A configuration, a mix, a cell and a metric added as files (and
-    entries in BENCHMARK.json) are found; no file of the harness changes."""
+    """A configuration, a mix, a cell, a metric, a family and a path added
+    as files (and entries in BENCHMARK.json) are found; no file of the
+    harness changes."""
     root = tmp_path / "checkout"
     shutil.copytree(BENCH_DIR, root / "pmctf_bench", ignore=shutil.ignore_patterns("__pycache__"))
     b = bench()
@@ -82,10 +85,60 @@ def test_new_files_are_found_without_editing(tmp_path):
     (d / "metrics" / "new_metric.py").write_text("def read(rec):\n    return 7.0\n")
     assert metric_reader("new_metric.y", str(d))({}) == 7.0
     assert metric_reader("new_metric.x", str(d))({}) == 42.0
+    # a family and a path: a configuration names the one, a mix the other
+    (d / "families" / "new_family.py").write_text(
+        "PATHS = ('new_path',)\nMODEL_FAULTS, GLOBAL_FAULTS = {}, {}\n")
+    (d / "paths" / "new_path.py").write_text("def build(model, mix, device):\n    return 'p'\n")
+    json.dump({**cfg, "name": "new_family_cfg", "family": "new_family"},
+              open(d / "configs" / "new_family_cfg.json", "w"))
+    json.dump({**mix, "path": "new_path"}, open(d / "traffic" / "new_path_mix.json", "w"))
+    json.dump({"plane_rmse": 1.0}, open(d / "limits" / "new_family_cfg.new_path_mix.json", "w"))
+    b["configs"].append({"name": "new_family_cfg", "source": "x", "reduced": [], "why": "x",
+                         "file": "pmctf_bench/configs/new_family_cfg.json"})
+    b["workloads"].append({"name": "new_family_cfg.new_path_mix", "config": "new_family_cfg",
+                           "traffic": "new_path_mix", "chips": 1, "why": "x"})
+    json.dump(b, open(root / "BENCHMARK.json", "w"))
+    cell = load_cell("new_family_cfg.new_path_mix", root=str(root))
+    assert (cell.family, cell.path, cell.bench_dir) == ("new_family", "new_path", str(d))
+    assert load_family(cell.family, cell.bench_dir).PATHS == ("new_path",)
+    assert load_path(cell.path, cell.bench_dir).build(None, None, None) == "p"
+    # a family is refused a path it does not take, before any set-up
+    b["workloads"].append({"name": "pmctf_l_new.new_path_mix", "config": "pmctf_l_new",
+                           "traffic": "new_path_mix", "chips": 1, "why": "x"})
+    json.dump(b, open(root / "BENCHMARK.json", "w"))
+    with pytest.raises(ValueError, match="family 'pmctf_l' takes the paths"):
+        load_cell("pmctf_l_new.new_path_mix", root=str(root))
     after = {p: hashlib.sha256(open(p, "rb").read()).hexdigest()
              for p in (root / "pmctf_bench").rglob("*.py")
-             if p.name not in ("new_metric.x.py", "new_metric.py")}
+             if p.name not in ("new_metric.x.py", "new_metric.py", "new_family.py",
+                               "new_path.py")}
     assert after == before
+
+
+CELLS = {"pmctf_l_f32.estimate_gop16_1080p": "estimate",
+         "pmctf_l_bf16.estimate_gop8_2160p": "estimate",
+         "pmctf_l_f32.stream_gop4_1080p": "stream"}
+
+
+def test_cells_resolve_to_their_family_and_path():
+    assert {w["name"] for w in bench()["workloads"]} == set(CELLS)
+    for name, path in CELLS.items():
+        cell = load_cell(name)
+        assert "family" not in cell.config and (cell.family, cell.path) == ("pmctf_l", path)
+        assert cell.path in load_family(cell.family).PATHS
+        assert callable(load_path(cell.path).build)
+
+
+# the harness's own files: the whole model is the family's, the entry
+# points the paths'
+GENERIC = ("harness.py", "layers.py", "trace.py", "work.py", "weights.py", "check.py", "cells.py")
+MODEL_NAMES = re.compile(r"\b(PMCTF|PWave|code_gop|stream_gop)\b")
+
+
+@pytest.mark.parametrize("name", GENERIC)
+def test_harness_names_no_model_and_no_entry_point(name):
+    text = open(os.path.join(BENCH_DIR, name)).read()
+    assert not MODEL_NAMES.findall(text), name
 
 
 def _imports(path):

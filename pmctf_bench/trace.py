@@ -1,8 +1,8 @@
-"""The traced GOP: spans around the port's layers, and their reduction.
+"""The traced input: spans around the port's layers, and their reduction.
 
-A traced GOP runs under ``torch.profiler`` (CUPTI) with a span
-(``record_function``) around each call of a layer's module (layers.py)
-and around the ladder's steps (``span_methods``). The reduction reads
+A traced input runs under ``torch.profiler`` (CUPTI) with a span
+(``record_function``) around each call of a layer's module (layers.py,
+by the family's table) and around the path's steps (``span_methods``). The reduction reads
 the profiler's raw events, not a chrome trace:
 
 - a kernel (or copy, or fill) belongs to the innermost layer span open on
@@ -70,14 +70,14 @@ def span_methods(obj, names: Iterable[str], record_function):
 
 
 @contextlib.contextmanager
-def layer_spans(model, record_function):
-    """A span around each call of a layer's module."""
+def layer_spans(model, record_function, family):
+    """A span around each call of a layer's module (`family`'s table)."""
     def enter(layer):
         rf = record_function(layer)
         rf.__enter__()
         return rf
 
-    with layers.hooked(model, enter, lambda rf: rf.__exit__(None, None, None)):
+    with layers.hooked(model, enter, lambda rf: rf.__exit__(None, None, None), family):
         yield
 
 

@@ -1,4 +1,4 @@
-"""Operations and bytes of a GOP, counted from its shapes, and the peaks
+"""Operations and bytes of one input (a GOP, a picture), counted from its shapes, and the peaks
 of the card they are held against.
 
 Every convolution (1x1, strided, depthwise and the sub-pixel convs'
@@ -33,7 +33,7 @@ def conv_bytes(x_numel: int, w_numel: int, y_numel: int, precision: str) -> int:
 
 
 class Work:
-    """The operations, bytes and least time of the convs a GOP ran, by
+    """The operations, bytes and least time of the convs an input ran, by
     layer. `precision` is the configuration's ("f32" or "bf16")."""
 
     def __init__(self, precision: str):
